@@ -1,0 +1,112 @@
+"""Training wrapper: episode truncation, autoreset to the cached reset state,
+per-env domain-randomized model, NaN quarantine. Counterpart of
+`open_duck_playground_tpu/envs/wrappers.py:TrainingEnv`; the env batch is
+the leading axis of every tensor instead of a vmap.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from open_duck_playground_torch.envs.env_types import State
+from open_duck_playground_torch.envs.randomize import DRDraws, domain_randomize
+from open_duck_playground_torch.physics.types import Data
+
+
+def _bcast(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
+
+
+def _where_done(done: torch.Tensor, x, y):
+    """Per env: x where done else y (Data or dict of tensors)."""
+    sel = lambda a, b: torch.where(_bcast(done, a), a, b)
+    if isinstance(x, Data):
+        return Data(**{k: sel(v, getattr(y, k)) for k, v in x.fields()})
+    return {k: sel(v, y[k]) for k, v in x.items()}
+
+
+def _sanitize(bad: torch.Tensor, tree):
+    """nan_to_num the float tensors of the `bad` envs (Data or dict)."""
+
+    def fix(a):
+        if not (isinstance(a, torch.Tensor) and a.is_floating_point()):
+            return a
+        return torch.where(_bcast(bad, a), torch.nan_to_num(a), a)
+
+    if isinstance(tree, Data):
+        return tree.map(fix)
+    return {k: fix(v) for k, v in tree.items()}
+
+
+def env_finite(state: State) -> torch.Tensor:
+    """(B,) bool: True where obs, qpos and qvel are all finite."""
+    leaves = list(state.obs.values()) + [state.data.qpos, state.data.qvel]
+    flags = [torch.isfinite(x).reshape(x.shape[0], -1).all(1) for x in leaves]
+    return torch.stack(flags, 0).all(0)
+
+
+class TrainingEnv:
+    """reset(draws) -> batched State; step(state, action, draws) -> State.
+
+    With `dr_draws` the env runs on a model whose randomized fields carry
+    one value per env."""
+
+    def __init__(self, env, episode_length: int, dr_draws: Optional[DRDraws] = None):
+        self._env = env
+        self._episode_length = episode_length
+        self._model = domain_randomize(env.model, dr_draws) if dr_draws is not None else env.model
+
+    def reset(self, draws) -> State:
+        state = self._env.reset(draws, model=self._model)
+        # finite floor: a pathological randomized model must not cache NaN
+        # as the autoreset target
+        bad = ~env_finite(state)
+        state = state.replace(data=_sanitize(bad, state.data), obs=_sanitize(bad, state.obs))
+        B = state.reward.shape[0]
+        info = dict(state.info)
+        info["steps"] = torch.zeros(B, dtype=torch.float32, device=state.reward.device)
+        info["truncation"] = torch.zeros_like(info["steps"])
+        info["first_data"] = state.data
+        info["first_obs"] = state.obs
+        return state.replace(info=info)
+
+    def step(self, state: State, action: torch.Tensor, draws) -> State:
+        info = dict(state.info)
+        first_data = info.pop("first_data")
+        first_obs = info.pop("first_obs")
+        steps_prev = info.pop("steps")
+        info.pop("truncation")
+
+        # autoreset happens on the step after done was reported
+        done_prev = state.done > 0
+        data = _where_done(done_prev, first_data, state.data)
+        obs = _where_done(done_prev, first_obs, state.obs)
+        steps_prev = torch.where(done_prev, torch.zeros_like(steps_prev), steps_prev)
+        state = state.replace(data=data, obs=obs, info=info)
+
+        nstate = self._env.step(state, action, draws, model=self._model)
+
+        # quarantine non-finite envs: cached reset state, zero reward, done
+        bad = ~env_finite(nstate)
+        nstate = nstate.replace(
+            data=_where_done(bad, first_data, nstate.data),
+            obs=_where_done(bad, first_obs, nstate.obs),
+            reward=torch.where(bad, torch.zeros_like(nstate.reward), nstate.reward),
+            done=torch.where(bad, torch.ones_like(nstate.done), nstate.done),
+            info=_sanitize(bad, nstate.info),
+            metrics=_sanitize(bad, nstate.metrics),
+        )
+
+        steps = steps_prev + 1
+        at_limit = steps >= self._episode_length
+        done = torch.where(at_limit, torch.ones_like(nstate.done), nstate.done)
+        truncation = at_limit * (1 - nstate.done)
+
+        info = dict(nstate.info)
+        info["steps"] = steps
+        info["truncation"] = truncation
+        info["first_data"] = first_data
+        info["first_obs"] = first_obs
+        return nstate.replace(done=done, info=info)
