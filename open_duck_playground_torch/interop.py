@@ -2,7 +2,8 @@
 
 The arguments are JAX pytrees already converted to numpy (for example with
 `jax.tree.map(np.asarray, tree)`): nested dicts, or objects with the same
-attribute names. Nothing here imports JAX.
+attribute names. Each helper builds on `device`, the card unless the caller
+passes "cpu". Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -22,11 +23,11 @@ def _get(tree: Any, key: str):
     return tree[key] if isinstance(tree, Mapping) else getattr(tree, key)
 
 
-def _tensor(x, device=None) -> torch.Tensor:
+def _tensor(x, device="cuda") -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=device)
 
 
-def mlp_from_jax(params: Mapping, device=None) -> MLP:
+def mlp_from_jax(params: Mapping, device="cuda") -> MLP:
     """MLP from {"hidden_i": {"kernel": (in, out), "bias": (out,)}}."""
     n = len(params)
     kernels = [np.asarray(params[f"hidden_{i}"]["kernel"], np.float32) for i in range(n)]
@@ -39,13 +40,13 @@ def mlp_from_jax(params: Mapping, device=None) -> MLP:
     return mlp
 
 
-def policy_from_jax(params_np: Mapping, device=None) -> PPONetworks:
+def policy_from_jax(params_np: Mapping, device="cuda") -> PPONetworks:
     """PPONetworks from the policy of the JAX {"policy": ..., "value": ...}
     parameter tree."""
     return PPONetworks(mlp_from_jax(params_np["policy"], device))
 
 
-def normalizer_from_jax(stats_np: Any, device=None) -> RunningStats:
+def normalizer_from_jax(stats_np: Any, device="cuda") -> RunningStats:
     """RunningStats from a JAX RunningStats (count, mean, summed_var, std)."""
     f = lambda x: _tensor(np.asarray(x, np.float32), device)
     d = lambda key: {k: f(v) for k, v in _get(stats_np, key).items()}
@@ -53,7 +54,7 @@ def normalizer_from_jax(stats_np: Any, device=None) -> RunningStats:
                         summed_var=d("summed_var"), std=d("std"))
 
 
-def _data_from_jax(data_np: Any, device=None) -> Data:
+def _data_from_jax(data_np: Any, device="cuda") -> Data:
     fields = {}
     for name in Data.__dataclass_fields__:
         fields[name] = _tensor(np.asarray(_get(data_np, name), np.float32), device)
@@ -71,7 +72,7 @@ def _value(x, device):
     return _tensor(a, device)
 
 
-def state_from_jax(state_np: Any, device=None) -> State:
+def state_from_jax(state_np: Any, device="cuda") -> State:
     """A port State from a batched JAX State converted to numpy. The JAX
     env's PRNG key (`info["rng"]`) is dropped: the port takes its random
     numbers as explicit draws."""

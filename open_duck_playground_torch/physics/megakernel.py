@@ -15,8 +15,8 @@ stage, blocks of 64 threads so 8192 envs spread over 128 of the 132 SMs.
 More threads per env and the block-arrow forms of
 `structure.dof_chain_blocks` are the tools of a later pass.
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version,
-`forward.step_reference`. The kernel is built with `nvcc` at first use into
+The wrapper takes CUDA tensors only; `forward.step` sends CPU tensors to
+the plain version, `forward.step_reference`. The kernel is built with `nvcc` at first use into
 `build/kernels/` (one library per model shape) and bound with ctypes.
 """
 
@@ -395,7 +395,9 @@ class _Kernel:
         self.struct_type = model_struct_type(dims)
         if lib.mk_model_size() != ctypes.sizeof(self.struct_type):
             raise RuntimeError("MkModel layout differs between megakernel.cuh and the wrapper")
-        self._uploaded = ()  # the structure of the model in constant memory
+        # per device index: the model whose structure is in that device's
+        # constant memory
+        self._uploaded: Dict[int, Tuple] = {}
 
     def upload(self, m: Model) -> None:
         """Put the model's structure tables in constant memory of the
@@ -405,13 +407,15 @@ class _Kernel:
         key = (m.spec,) + tuple(
             getattr(m, f) for f in m.__dataclass_fields__ if f != "spec" and f not in RANDOMIZED_FIELDS
         )
-        if len(key) == len(self._uploaded) and all(a is b for a, b in zip(key, self._uploaded)):
+        dev = torch.cuda.current_device()
+        done = self._uploaded.get(dev, ())
+        if len(key) == len(done) and all(a is b for a, b in zip(key, done)):
             return
         st = model_struct(m)
         err = self.lib.mk_set_model(ctypes.byref(st))
         if err:
             raise RuntimeError(f"mk_set_model failed: CUDA error {err}")
-        self._uploaded = key
+        self._uploaded[dev] = key
 
     def info(self) -> Dict[str, int]:
         """Local memory, registers, occupancy of the built kernel."""
@@ -437,13 +441,12 @@ def kernel(spec: ModelSpec) -> _Kernel:
 
 
 def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int) -> Data:
-    """n_substeps substeps of every env: the CUDA kernel for CUDA tensors,
-    `forward.step_reference` for CPU tensors."""
+    """n_substeps substeps of every env in one launch of the CUDA kernel.
+    Takes CUDA tensors only (`forward.step` routes CPU tensors to the plain
+    version)."""
     global launches
     if not d.qpos.is_cuda:
-        from open_duck_playground_torch.physics import forward as F
-
-        return F.step_reference(m, d, ctrl, n_substeps)
+        raise TypeError(f"the CUDA kernel takes CUDA tensors, got qpos on {d.qpos.device}")
     if m.spec.floor_is_hfield:
         raise NotImplementedError("the CUDA kernel has no heightfield branch yet")
     k = kernel(m.spec)
@@ -451,7 +454,7 @@ def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int) -> D
     ptrs = pointer_array(inputs + outputs)
     stream = torch.cuda.current_stream(d.qpos.device).cuda_stream
     with torch.cuda.device(d.qpos.device):
-        k.upload(m)  # one card per process in this slice: one upload slot
+        k.upload(m)
         err = k.lib.mk_step(ptrs, d.qpos.shape[0], n_substeps, stream)
     if err:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")

@@ -11,6 +11,8 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from open_duck_playground_torch.physics.forward import pin_f32
+
 _MIN_STD = 0.001
 
 
@@ -18,8 +20,10 @@ class MLP(nn.Module):
     """Linear layers with swish between them (none after the last)."""
 
     def __init__(self, sizes: Sequence[int], generator: Optional[torch.Generator] = None,
-                 device=None):
+                 device="cuda"):
         super().__init__()
+        if torch.device(device).type == "cuda":
+            pin_f32()
         self.sizes = tuple(sizes)
         self.layers = nn.ModuleList(
             nn.Linear(din, dout, device=device) for din, dout in zip(sizes[:-1], sizes[1:])
@@ -53,7 +57,7 @@ class PPONetworks(nn.Module):
 
     @classmethod
     def init(cls, obs_sizes: Dict[str, int], action_size: int, policy_hidden: Sequence[int],
-             generator: torch.Generator, device=None, policy_obs_key: str = "state"):
+             generator: torch.Generator, device="cuda", policy_obs_key: str = "state"):
         policy = MLP((obs_sizes[policy_obs_key], *policy_hidden, 2 * action_size),
                      generator, device)
         return cls(policy, policy_obs_key)

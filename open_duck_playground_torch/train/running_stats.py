@@ -18,7 +18,7 @@ class RunningStats:
     std: Dict[str, torch.Tensor]
 
 
-def init(obs_sizes: Dict[str, int], device=None, dtype=torch.float32) -> RunningStats:
+def init(obs_sizes: Dict[str, int], device="cuda", dtype=torch.float32) -> RunningStats:
     z = lambda n: torch.zeros(n, dtype=dtype, device=device)
     return RunningStats(
         count=torch.zeros((), dtype=dtype, device=device),

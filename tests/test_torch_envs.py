@@ -248,7 +248,7 @@ def test_state_from_jax_resumes_the_jax_rollout(envs, jax_fns):
     jreset, jstep = jax_fns
     keys = jax.random.split(jax.random.PRNGKey(12), B)
     jstate = jreset(keys)
-    tstate = state_from_jax(jax.tree.map(np.asarray, jstate))
+    tstate = state_from_jax(jax.tree.map(np.asarray, jstate), device="cpu")
     assert set(tstate.info) == set(jstate.info) - {"rng"}
     action = np.zeros((B, tenv.action_size), np.float32)
     draws = jax_step_draws(jenv, jstate.info["rng"])

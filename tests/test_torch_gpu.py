@@ -5,9 +5,9 @@ it also runs on the card's machine, which has no `mujoco`:
     python -m pytest tests/test_torch_gpu.py -q
 
 Gates: the kernel against its plain version (`forward.step_reference`),
-per env, at the interpret-mode test's tolerances after one substep (every
-env) and at p90 after 10 substeps (the 1-iteration Newton solve lets a few
-envs part later; chip_smoke.py states that gate in full).
+per env, at the interpret-mode test's tolerances: the max for every env of
+every substep along the kernel's own trajectory, p90 after 10 free-running
+substeps (the 1-iteration Newton solve lets a few envs part later).
 """
 
 import numpy as np
@@ -35,27 +35,36 @@ def _per_env(a, b):
     return (a - b).abs().reshape(a.shape[0], -1).amax(1).double().cpu().numpy()
 
 
-@pytest.mark.parametrize("n_substeps,max_gate", [(1, True), (10, False)])
-def test_cuda_kernel_matches_step_reference(cuda, n_substeps, max_gate):
+def test_cuda_kernel_matches_step_reference(cuda):
+    """One substep per launch along the kernel's own trajectory, every env
+    within the max gates at every substep; the one 10-substep launch gives
+    exactly that trajectory, within the p90 gates of 10 plain substeps."""
     model = loader.load_model(device=cuda, timestep=0.002)
     batch = 1000  # not a multiple of the block: the ragged edge is masked
-    gen = torch.Generator(device=cuda).manual_seed(1)
+    gen = torch.Generator(device=cuda).manual_seed(3)
     m = domain_randomize(model, DRDraws.sample(gen, batch, model.spec))
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(3)
     kq = model.key_qpos.cpu().numpy()
     qpos = np.tile(kq, (batch, 1)) + 0.01 * rng.standard_normal((batch, kq.size))
     qvel = 0.1 * rng.standard_normal((batch, model.spec.nv))
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cuda)
     ctrl = model.key_ctrl.expand(batch, -1).contiguous()
     d0 = F.init(m, f32(qpos), f32(qvel), ctrl)
-    got = MK.megakernel_step(m, d0, ctrl, n_substeps)
-    torch.cuda.synchronize()
-    want = F.step_reference(m, d0, ctrl, n_substeps)
-    for f, p90, mx in [("qpos", 1e-5, 1e-4), ("qvel", 1e-3, 1e-2)]:
+    gates = [("qpos", 1e-5, 1e-4), ("qvel", 1e-3, 1e-2)]
+    d = d0
+    for _ in range(10):
+        k1 = MK.megakernel_step(m, d, ctrl, 1)
+        p1 = F.step_reference(m, d, ctrl, 1)
+        for f, _, mx in gates:
+            e = _per_env(getattr(k1, f), getattr(p1, f))
+            assert e.max() < mx, (f, e.max())
+        d = k1
+    got = MK.megakernel_step(m, d0, ctrl, 10)
+    assert torch.equal(got.qpos, d.qpos) and torch.equal(got.qvel, d.qvel)
+    want = F.step_reference(m, d0, ctrl, 10)
+    for f, p90, _ in gates:
         e = _per_env(getattr(got, f), getattr(want, f))
         assert np.percentile(e, 90) < p90, (f, np.percentile(e, 90))
-        if max_gate:
-            assert e.max() < mx, (f, e.max())
     assert torch.equal(got.qacc_warmstart, got.qacc)
 
 

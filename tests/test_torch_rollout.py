@@ -70,8 +70,8 @@ def rollout():
     net = JN.PPONetworks(obs_sizes, jenv.action_size, HIDDEN, (256, 256, 256, 256))
     params = net.init(jax.random.PRNGKey(2))
     normalizer = JRS.init(obs_sizes)
-    tnet = policy_from_jax(jax.tree.map(np.asarray, params))
-    tnorm = normalizer_from_jax(jax.tree.map(np.asarray, normalizer))
+    tnet = policy_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    tnorm = normalizer_from_jax(jax.tree.map(np.asarray, normalizer), device="cpu")
     return dict(jenv=jenv, jwrapped=jwrapped, twrapped=twrapped, jstate=jstate,
                 tstate=tstate, net=net, params=params, normalizer=normalizer,
                 tnet=tnet, tnorm=tnorm, jstep=jax.jit(jwrapped.step))
@@ -89,7 +89,7 @@ def test_training_rollout_matches_jax(rollout):
     key = jax.random.PRNGKey(1)
     for i in range(3):
         if i:
-            tstate = state_from_jax(jax.tree.map(np.asarray, jstate))
+            tstate = state_from_jax(jax.tree.map(np.asarray, jstate), device="cpu")
         # bench.py's rollout body: split, policy forward, tanh-Normal sample
         key, ak = jax.random.split(key)
         logits = r["net"].policy_logits(r["params"], JRS.normalize(r["normalizer"], jstate.obs))
