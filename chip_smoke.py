@@ -3,19 +3,29 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each (a phase that has two kernels prints two):
   1. device: the card's name and power limit;
-  2. build: nvcc builds the physics megakernel from csrc/ into build/kernels/;
-  3. kernel: the CUDA kernel against its plain version
-     (`forward.step_reference`) at 8192 domain-randomized envs, substep by
-     substep along the kernel's trajectory and over 10 substeps in one
-     launch, with times and the card's least time for the same work;
+  2. build: nvcc builds, side by side, the physics megakernel for the plane
+     scene and for the heightfield scene (-DMK_HFIELD=1) and the issue-rate
+     probe, from csrc/ into build/kernels/;
+  3. kernel_vs_plain, kernel_timing: each megakernel build against its plain
+     version (`forward.step_reference`) at 8192 domain-randomized envs,
+     substep by substep along the kernel's trajectory and over 10 substeps
+     in one launch, with times and the card's least time for the same work;
+     the heightfield run spreads the envs over +-3 m of rough terrain and
+     must see active contacts on tilted triangles;
   4. rollout: the training rollout (TrainingEnv + Joystick on
-     flat_terrain_backlash, the 128x4 policy in the loop), 8192 envs x 20
-     control steps, every physics step through the kernel.
+     flat_terrain_backlash, the 128x4 policy in the loop), 8192 envs x 5
+     control steps, every physics step through the plane kernel;
+  5. issue_probe: `tools.issue_bench` over its configs, and the probe
+     kernel against its plain version at a small trip count;
+  6. ppo_step: `train.ppo.training_step` on Joystick("rough_terrain_backlash")
+     at the full PPO config (8192 envs, unroll 20, 4 x 32 minibatches of
+     256), 2 steps after a warm-up step, every physics step through the
+     heightfield kernel.
 Then the kernel table, the nvidia-smi line, and `{"ok": true, ...}` last.
 Exits non-zero, printing no result, without a CUDA card or when a phase
-fails. Needs no network; the kernel build counts against the run.
+fails. Needs no network; the kernel builds count against the run.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -41,7 +52,8 @@ N_SUBSTEPS = 10
 # An env at an edge: where the 1-iteration Newton step is discontinuous
 # (a constraint row at the edge of its active set), two f32 evaluations that
 # differ in the last bit may land on different sides, and one substep then
-# differs by more than max. Such an env passes only if the plain version is
+# differs by more than max; on a heightfield a hull vertex on the edge of a
+# triangle does the same to its contact normal. Such an env passes only if the plain version is
 # shown to jump there itself: re-run from its input perturbed at rounding
 # scale (EDGE_COPIES copies, relative EDGE_SCALE), its own result moves by
 # at least max, and one of those plain results is within max of the
@@ -124,7 +136,8 @@ def active_rows(m, d):
 def megakernel_work(m, n_envs: int, n_substeps: int, active_contacts: float, active_limits: float):
     """(bytes, f32 operations) the kernel's function needs for one launch.
 
-    Bytes: each per-env input read once and each output written once.
+    Bytes: each per-env input read once and each output written once, and
+    on a heightfield the height table once per launch (all envs share it).
     Operations: counted from the loops of csrc/megakernel.cuh, one per add,
     multiply, divide, sqrt, sin or cos, with the data-dependent rows (active
     contacts and joint limits) at this run's average."""
@@ -138,6 +151,8 @@ def megakernel_work(m, n_envs: int, n_substeps: int, active_contacts: float, act
     floats_in = nq + nv + nu + nv + nq + 4 * nu + 2 * nv + nb + 3 * nb + 1
     floats_out = nq + 3 * nv + s.nsite * 12 + nu + s.ncon_max + s.nsensordata
     nbytes = 4 * n_envs * (floats_in + floats_out)
+    if s.floor_is_hfield:
+        nbytes += 4 * s.hfield_nrow * s.hfield_ncol
 
     anc = m.ancestor_mask.cpu().numpy()
     pred = structure.dof_pred_mask(s)
@@ -156,7 +171,14 @@ def megakernel_work(m, n_envs: int, n_substeps: int, active_contacts: float, act
     chol = sum((nv - k) + (nv - k - 1) * (nv - k) for k in range(nv)) + nv
     solve = 2 * nv * nv
     ops += chol + solve  # qacc_smooth
-    ops += (len(s.collide_geom_ids) + 1) * (rot + 3 + qmul) + len(s.collide_geom_ids) * d["NVERT"] * (rot + 8)
+    nfoot, nvert, frame = len(s.collide_geom_ids), d["NVERT"], 27  # frame: 2 cross, dot, sqrt, 3 div
+    if s.floor_is_hfield:
+        # hfield_height_normal: cell coordinates 8, height 8, slopes 6, unit normal 8, offsets 2
+        height_normal = 32
+        ops += rot + 3 + nfoot * (rot + 3 + qmul) + nfoot * nvert * (rot + 3 + height_normal + 3)
+        ops += s.ncon_max * (height_normal + 6 + frame)  # the chosen vertices: normal again, point, frame
+    else:
+        ops += (nfoot + 1) * (rot + 3 + qmul) + nfoot * nvert * (rot + 8)
     nlim_act, ncon_act = active_limits, active_contacts
     foot_dofs = float(np.mean([anc[s.geom_bodyid[g]].sum() for g in s.collide_geom_ids]))
     ops += d["NFRIC"] * 3 + d["NLIM"] * 30 + s.ncon_max * 40
@@ -175,63 +197,95 @@ def megakernel_work(m, n_envs: int, n_substeps: int, active_contacts: float, act
     return nbytes, n_envs * ops
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
-        return 2
+def load_modules():
+    """The port's modules, imported after the card is known to be there."""
+    import types
 
-    from open_duck_playground_torch.envs.joystick import Joystick, ResetDraws, StepDraws
-    from open_duck_playground_torch.envs.randomize import DRDraws, domain_randomize
-    from open_duck_playground_torch.envs.wrappers import TrainingEnv
+    from open_duck_playground_torch.envs import joystick, randomize, wrappers
     from open_duck_playground_torch.models import loader
-    from open_duck_playground_torch.physics import forward as F
-    from open_duck_playground_torch.physics import megakernel as MK
-    from open_duck_playground_torch.train import networks as N
-    from open_duck_playground_torch.train import running_stats as RS
-    from open_duck_playground_torch.train.config import PPOConfig
+    from open_duck_playground_torch.physics import collision, forward, kinematics, megakernel
+    from open_duck_playground_torch.tools import issue_bench
+    from open_duck_playground_torch.train import config, networks, ppo, running_stats
 
-    t_start = time.perf_counter()
-    dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
-    emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
-          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
-    F.pin_f32()
+    return types.SimpleNamespace(
+        J=joystick, R=randomize, W=wrappers, loader=loader, C=collision, F=forward, K=kinematics,
+        MK=megakernel, IB=issue_bench, cfg=config, N=networks, ppo=ppo, RS=running_stats)
 
-    # ---- 2. build
-    model = loader.load_model(device=dev, dtype=torch.float32, timestep=0.002)
+
+def build_phase(P, models):
+    """nvcc on every kernel source at once: one process per library."""
     t0 = time.perf_counter()
-    kernel = MK.kernel(model.spec)
-    build_s = time.perf_counter() - t0
-    info = kernel.info()
-    ptxas = [l.strip() for l in kernel.build_log.splitlines()
-             if "registers" in l or "spill" in l or "stack frame" in l]
-    resident = info["blocks_per_sm"] * info["block_size"]
-    emit({"phase": "build", "nvcc_seconds": round(kernel.build_seconds, 3),
-          "first_use_seconds": round(build_s, 3), **info,
-          "resident_threads_per_sm": resident,
-          "occupancy": resident / 2048, "ptxas": ptxas})
+    with ThreadPoolExecutor(len(models) + 1) as pool:
+        futures = {name: pool.submit(P.MK.kernel, m.spec) for name, m in models.items()}
+        probe = pool.submit(P.IB.library)
+        kernels = {name: f.result() for name, f in futures.items()}
+        probe = probe.result()
+    wall = time.perf_counter() - t0
+    for name, k in kernels.items():
+        info = k.info()
+        resident = info["blocks_per_sm"] * info["block_size"]
+        emit({"phase": "build", "kernel": name, "nvcc_seconds": round(k.build_seconds, 3),
+              "flags": P.MK.dim_flags(k.dims), **info, "resident_threads_per_sm": resident,
+              "occupancy": resident / 2048, "ptxas": k.ptxas})
+    regs = [int(l.split("Used ")[1].split(" registers")[0]) for l in probe.ptxas_lines() if "Used " in l]
+    emit({"phase": "build", "kernel": "issue_probe", "nvcc_seconds": round(probe.build_seconds, 3),
+          "instantiations": len(regs), "registers_per_thread_max": max(regs),
+          "stack_bytes_max": max(int(l.split(" bytes stack")[0]) for l in probe.ptxas_lines()
+                                 if "bytes stack" in l),
+          "occupancy": "set by the launch: one block of 1-32 warps per SM"})
+    emit({"phase": "build", "kernel": "all", "parallel_wall_seconds": round(wall, 3)})
+    return kernels
 
-    # ---- 3. kernel against its plain version
-    gen = torch.Generator(device=dev).manual_seed(0)
-    m = domain_randomize(model, DRDraws.sample(gen, N_ENVS, model.spec))
+
+def start_state(P, model, gen, hfield: bool):
+    """8192 domain-randomized envs near the home keyframe (qpos 0.01, qvel
+    0.1 normal). On the heightfield the base is spread uniformly over +-3 m
+    in x and y and lifted as the env's spawn is (hfield_size[2] + 0.002)."""
+    dev = model.device
+    m = P.R.domain_randomize(model, P.R.DRDraws.sample(gen, N_ENVS, model.spec))
     rng = np.random.default_rng(0)
     kq, kc = model.key_qpos.cpu().numpy(), model.key_ctrl.cpu().numpy()
     qpos = np.tile(kq, (N_ENVS, 1)) + 0.01 * rng.standard_normal((N_ENVS, kq.size))
     qvel = 0.1 * rng.standard_normal((N_ENVS, model.spec.nv))
+    if hfield:
+        qpos[:, :2] += rng.uniform(-3.0, 3.0, (N_ENVS, 2))
+        qpos[:, 2] += float(model.hfield_size[2]) + 0.002
     ctrl = np.tile(kc, (N_ENVS, 1))
     qpos, qvel, ctrl = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (qpos, qvel, ctrl))
-    d0 = F.init(m, qpos, qvel, ctrl)
+    return m, P.F.init(m, qpos, qvel, ctrl), ctrl
+
+
+def terrain_contacts(P, m, d):
+    """Envs with an active contact, and active contacts whose normal is off
+    +z, over states `d` (the plain collision code)."""
+    mm = m.expand_batch(d.qpos.shape[0])
+    xpos, xquat = P.K.kinematics(mm, d.qpos)[:2]
+    con = P.C.collide(mm, xpos, xquat)
+    active = con.dist < 0
+    tilted = active & (con.frame[:, :, 0, 2] < 1 - 1e-6)
+    return int(active.any(1).sum()), int(tilted.sum()), int(active.sum())
+
+
+def kernel_phase(P, name, model, gen, replaces, timing_reps):
+    """kernel_vs_plain and kernel_timing of one megakernel build; returns
+    its row of the kernel table (launches filled in later)."""
+    MK, F = P.MK, P.F
+    dev = model.device
+    hfield = model.spec.floor_is_hfield
+    m, d0, ctrl = start_state(P, model, gen, hfield)
     got = MK.megakernel_step(m, d0, ctrl, N_SUBSTEPS)
     torch.cuda.synchronize()
     want = F.step_reference(m, d0, ctrl, N_SUBSTEPS)
 
     check = {f: {"per_substep_max": []} for f in GATES}
-    edges = []
-    failures = []
+    edges, failures = [], []
     edge_gen = torch.Generator(device=dev).manual_seed(1)
     d = d0
+    touching = tilted = contacts = 0
     for sub in range(N_SUBSTEPS):  # the kernel's own trajectory, substep by substep
+        if hfield:
+            a, b, c = terrain_contacts(P, m, d)
+            touching, tilted, contacts = max(touching, a), tilted + b, contacts + c
         k1 = MK.megakernel_step(m, d, ctrl, 1)
         p1 = F.step_reference(m, d, ctrl, 1)
         over = np.zeros(N_ENVS, bool)
@@ -257,42 +311,57 @@ def main() -> int:
         if not np.percentile(e, 90) < gate:
             failures.append(f)
     finite = all(torch.isfinite(x).all().item() for _, x in got.fields())
-    emit({"phase": "kernel_vs_plain", "envs": N_ENVS, "substeps": N_SUBSTEPS,
+    terrain = {}
+    if hfield:
+        # else the phase tested a plane
+        terrain = {"envs_with_active_contact": touching, "active_contact_substeps": contacts,
+                   "active_contacts_with_tilted_normal": tilted}
+        if touching == 0 or tilted == 0:
+            failures.append("no active contact on a tilted triangle")
+    emit({"phase": "kernel_vs_plain", "kernel": name, "envs": N_ENVS, "substeps": N_SUBSTEPS,
           "gates": {"p90_max": GATES, "derived_p90": DERIVED_P90,
                     "edge_copies": EDGE_COPIES, "edge_scale": EDGE_SCALE},
-          "errors": check, "edges": edges, "finite": finite, "ok": not failures and finite})
+          "errors": check, "edges": edges, **terrain, "finite": finite,
+          "ok": not failures and finite})
     if failures or not finite:
-        raise SystemExit(f"kernel disagrees with its plain version: {failures}")
+        raise SystemExit(f"{name} disagrees with its plain version: {failures}")
 
-    ms = cuda_ms(lambda: MK.megakernel_step(m, d0, ctrl, N_SUBSTEPS), 20)
-    plain_ms = cuda_ms(lambda: F.step_reference(m, d0, ctrl, N_SUBSTEPS), 3)
-    # the same launch at 4x the envs: one thread per env leaves 8192 envs at
-    # ~62 threads per SM, so time per env shows how far latency, not work,
-    # sets the kernel's time
-    m4 = domain_randomize(model, DRDraws.sample(gen, 4 * N_ENVS, model.spec))
-    d4 = d0.map(lambda x: x.repeat((4,) + (1,) * (x.dim() - 1)))
-    ctrl4 = ctrl.repeat(4, 1)
-    ms4 = cuda_ms(lambda: MK.megakernel_step(m4, d4, ctrl4, N_SUBSTEPS), 5)
-    del m4, d4, ctrl4
+    ms = cuda_ms(lambda: MK.megakernel_step(m, d0, ctrl, N_SUBSTEPS), timing_reps)
+    plain_ms = cuda_ms(lambda: F.step_reference(m, d0, ctrl, N_SUBSTEPS), 2)
     active_contacts, active_limits = active_rows(m, got)
     nbytes, nops = megakernel_work(m, N_ENVS, N_SUBSTEPS, active_contacts, active_limits)
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / F32_FLOPS
     bound_ms = max(bytes_ms, ops_ms)
+    timing = {"phase": "kernel_timing", "kernel": name, "ms": ms, "plain_ms": plain_ms,
+              "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound_ms,
+              "roofline_share": bound_ms / ms, "us_per_1k_envs": 1e3 * ms / (N_ENVS / 1e3)}
+    if not hfield:
+        # the same launch at 4x the envs: one thread per env leaves 8192 envs
+        # at ~62 threads per SM, so time per env shows how far latency, not
+        # work, sets the kernel's time
+        m4 = P.R.domain_randomize(model, P.R.DRDraws.sample(gen, 4 * N_ENVS, model.spec))
+        d4 = d0.map(lambda x: x.repeat((4,) + (1,) * (x.dim() - 1)))
+        ctrl4 = ctrl.repeat(4, 1)
+        ms4 = cuda_ms(lambda: MK.megakernel_step(m4, d4, ctrl4, N_SUBSTEPS), 3)
+        timing.update({f"ms_at_{4 * N_ENVS}_envs": ms4,
+                       f"us_per_1k_envs_at_{4 * N_ENVS}": 1e3 * ms4 / (4 * N_ENVS / 1e3)})
+    emit(timing)
     # one substep of kernel and plain version from the same state, edges included
     max_abs_err = max(max(check[f]["per_substep_max"]) for f in GATES)
-    kernel_row = {
-        "name": "megakernel_step",
+    return {
+        "name": name,
         "route": "cuda",
         "source": "open_duck_playground_torch/csrc/megakernel.cu",
-        "replaces": MK.TPU_KERNEL,
+        "replaces": replaces,
         "launches": None,
         "max_abs_err": max_abs_err,
+        "tolerance": {f: g[1] for f, g in GATES.items()},
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-        "tolerance": {f: g[1] for f, g in GATES.items()},
+        "library_note": "no single PyTorch call computes a physics step",
         "edge_env_substeps": len(edges),
         "qpos_p90": check["qpos"]["p90"],
         "qvel_p90": check["qvel"]["p90"],
@@ -301,57 +370,210 @@ def main() -> int:
         "active_contacts_per_env": active_contacts,
         "active_limits_per_env": active_limits,
     }
-    emit({"phase": "kernel_timing", "ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms,
-          "ops_ms": ops_ms, "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
-          f"ms_at_{4 * N_ENVS}_envs": ms4, "us_per_1k_envs": 1e3 * ms / (N_ENVS / 1e3),
-          f"us_per_1k_envs_at_{4 * N_ENVS}": 1e3 * ms4 / (4 * N_ENVS / 1e3)})
-    del got, want, k1, p1, d, d0, m
 
-    # ---- 4. the training rollout through the kernel
-    cfg = PPOConfig()
-    env = Joystick("flat_terrain_backlash", device=dev)
-    wrapped = TrainingEnv(env, cfg.episode_length, dr_draws=DRDraws.sample(gen, cfg.num_envs, env.model.spec))
-    state = wrapped.reset(ResetDraws.sample(gen, cfg.num_envs, env))
+
+def rollout_phase(P, gen, smi, steps: int) -> int:
+    """The training rollout on the plane scene; returns the kernel launches."""
+    dev = gen.device
+    cfg = P.cfg.PPOConfig()
+    env = P.J.Joystick("flat_terrain_backlash", device=dev)
+    wrapped = P.W.TrainingEnv(env, cfg.episode_length,
+                              dr_draws=P.R.DRDraws.sample(gen, cfg.num_envs, env.model.spec))
+    state = wrapped.reset(env.reset_draws(gen, cfg.num_envs))
     obs_sizes = {k: v.shape[-1] for k, v in state.obs.items()}
-    net = N.PPONetworks.init(obs_sizes, env.action_size, cfg.policy_hidden_layer_sizes,
-                             gen, device=dev)
-    normalizer = RS.init(obs_sizes, device=dev)
+    net = P.N.PPONetworks.init(obs_sizes, env.action_size, cfg.policy_hidden_layer_sizes, gen, device=dev)
+    normalizer = P.RS.init(obs_sizes, device=dev)
 
     def rollout_step(state):
         with torch.no_grad():
-            logits = net.policy_logits(RS.normalize(normalizer, state.obs))
-            action = N.postprocess(N.sample_raw(logits, N.normal_noise(gen, logits)))
-        return wrapped.step(state, action, StepDraws.sample(gen, cfg.num_envs, env))
+            logits = net.policy_logits(P.RS.normalize(normalizer, state.obs))
+            action = P.N.postprocess(P.N.sample_raw(logits, P.N.normal_noise(gen, logits)))
+        return wrapped.step(state, action, env.step_draws(gen, cfg.num_envs))
 
     for _ in range(3):  # warm-up: allocator, cuBLAS handles
         state = rollout_step(state)
-    state = wrapped.reset(ResetDraws.sample(gen, cfg.num_envs, env))
+    state = wrapped.reset(env.reset_draws(gen, cfg.num_envs))
     torch.cuda.synchronize()
-    MK.reset_launches()
+    P.MK.reset_launches()
     t0 = time.perf_counter()
     rewards = []
-    for _ in range(cfg.unroll_length):
+    for _ in range(steps):
         state = rollout_step(state)
         rewards.append(state.reward)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = MK.launches
+    launches, launches_hfield = P.MK.launches, P.MK.launches_hfield
     obs_ok = all(torch.isfinite(v).all().item() and v.shape[0] == cfg.num_envs
                  for v in state.obs.values())
     rew = torch.stack(rewards)
     rew_ok = bool(torch.isfinite(rew).all().item())
-    sps = cfg.num_envs * cfg.unroll_length / seconds
-    emit({"phase": "rollout", "envs": cfg.num_envs, "steps": cfg.unroll_length,
-          "kernel_launches": launches, "seconds": seconds, "env_steps_per_s": sps,
-          "ms_per_control_step": 1e3 * seconds / cfg.unroll_length,
+    emit({"phase": "rollout", "task": "flat_terrain_backlash", "envs": cfg.num_envs, "steps": steps,
+          "kernel_launches": launches, "seconds": seconds,
+          "env_steps_per_s": cfg.num_envs * steps / seconds,
+          "ms_per_control_step": 1e3 * seconds / steps,
           "obs_shapes": {k: list(v.shape) for k, v in state.obs.items()},
           "mean_reward": float(rew.mean()), "done_frac": float(state.done.mean()),
           "obs_finite": obs_ok, "reward_finite": rew_ok, "card": smi})
-    if launches != cfg.unroll_length or not (obs_ok and rew_ok):
-        raise SystemExit(f"rollout failed: {launches} launches, obs ok {obs_ok}, reward ok {rew_ok}")
+    if launches != steps or launches_hfield != 0 or not (obs_ok and rew_ok):
+        raise SystemExit(f"rollout failed: {launches} launches ({launches_hfield} heightfield), "
+                         f"obs ok {obs_ok}, reward ok {rew_ok}")
+    return launches
 
-    kernel_row["launches"] = launches
-    emit({"kernels": [kernel_row], "seconds_total": time.perf_counter() - t_start})
+
+# The probe against its plain version: every variant and chain count, one
+# warp per scheduler, PROBE_CHECK_TRIPS trips (128 rounds) from starts in
+# [0.5, 0.6). The plain version accumulates in f64; the kernel rounds every
+# round to f32, half an ulp of 0.5-1 (3e-8 to 6e-8), which over 128 rounds
+# of `fma` or `add` adds up to 3.8e-6 to 7.6e-6 if every rounding falls the
+# same way. `exp` and `sqrt_div` contract to a fixed point and forget
+# earlier roundings.
+PROBE_CHECK_TRIPS, PROBE_TOLERANCE = 4, 1e-5
+PROBE_ROW = ("fma", 8, 16, 64)  # variant, chains, warps per SM, trips of the row's timing
+
+
+def probe_phase(P, gen, smi) -> dict:
+    IB = P.IB
+    dev = gen.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    IB.reset_launches()
+    rows = IB.run_configs(device=dev, emit=lambda r: emit({"phase": "issue_probe", "card": smi, **r}))
+    launches = IB.launches  # the tool's own path, before any comparison launch
+    if launches == 0:
+        raise SystemExit("issue_probe: the tool launched no kernel")
+
+    errs = {}
+    for variant in IB.VARIANTS:
+        for chains in IB.CHAINS:
+            x = 0.5 + 0.1 * torch.rand((chains, sms * 128), generator=gen, device=dev)
+            got = IB.run(variant, x, PROBE_CHECK_TRIPS)
+            want = IB.plain(variant, x, PROBE_CHECK_TRIPS)
+            errs[f"{variant}/{chains}"] = float((got - want).abs().max())
+    torch.cuda.synchronize()
+    max_err = max(errs.values())
+
+    variant, chains, warps, trips = PROBE_ROW
+    x = torch.full((chains, sms * 32 * warps), IB.X0, device=dev)
+    ms = cuda_ms(lambda: IB.run(variant, x, trips, 32 * warps), 20)
+    plain_ms = cuda_ms(lambda: IB.plain(variant, x, trips), 2)
+    nops = x.numel() * trips * IB.ROUNDS * IB.OPS_PER_ROUND[variant]
+    nbytes = 4 * (2 * x.numel() + 2 * chains) + 8 * sms  # x in, x out, constants, cycle counts
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / F32_FLOPS
+    peak = max(rows, key=lambda r: r["ops_per_clock_per_sm"])
+    emit({"phase": "issue_probe", "summary": True, "configs": len(rows), "launches": launches,
+          "peak_ops_per_clock_per_sm": peak["ops_per_clock_per_sm"],
+          "peak_config": [peak["variant"], peak["chains"], peak["warps_per_sm"]],
+          "peak_share_of_67_tflops": peak["share_of_67_tflops"],
+          "kernel_vs_plain": {"trips": PROBE_CHECK_TRIPS, "tolerance": PROBE_TOLERANCE,
+                              "max_abs_err": max_err, "by_variant_and_chains": errs},
+          "ok": max_err < PROBE_TOLERANCE, "card": smi})
+    if not max_err < PROBE_TOLERANCE:
+        raise SystemExit(f"issue probe disagrees with its plain version: {errs}")
+    return {
+        "name": "issue_probe",
+        "route": "cuda",
+        "source": "open_duck_playground_torch/csrc/issue_probe.cu",
+        "replaces": IB.TPU_KERNEL,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "tolerance": PROBE_TOLERANCE,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "library_note": "no single PyTorch call iterates a scalar recurrence in registers",
+        "timed_config": dict(zip(("variant", "chains", "warps_per_sm", "trips"), PROBE_ROW)),
+        "bytes": nbytes,
+        "f32_ops": nops,
+    }
+
+
+def ppo_phase(P, gen, smi) -> int:
+    """Full-width PPO training steps on rough terrain; returns the
+    heightfield kernel's launches over the measured steps."""
+    dev = gen.device
+    ppo = P.ppo
+    cfg = P.cfg.PPOConfig(num_evals=1)
+    env = P.J.Joystick("rough_terrain_backlash", device=dev)
+    train_env = P.W.TrainingEnv(env, cfg.episode_length,
+                                dr_draws=P.R.DRDraws.sample(gen, cfg.num_envs, env.model.spec))
+    state = train_env.reset(env.reset_draws(gen, cfg.num_envs))
+    ts = ppo.init_training_state(state.obs, env.action_size, cfg, gen, device=dev)
+    marks = []
+
+    def hook(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    ts, state, _ = ppo.training_step(ts, train_env, env, state, cfg, gen)  # warm-up
+    before = [p.detach().clone() for p in ts.net.parameters()]
+    torch.cuda.synchronize()
+    P.MK.reset_launches()
+    n_steps = 2
+    steps = []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        ts, state, metrics = ppo.training_step(ts, train_env, env, state, cfg, gen, phase_hook=hook)
+        (_, t_roll), (_, t_upd) = marks[-2:]
+        steps.append({"rollout_seconds": t_roll - t0, "update_seconds": t_upd - t_roll,
+                      **{k: float(v) for k, v in metrics.items()}})
+    launches, launches_hfield = P.MK.launches, P.MK.launches_hfield
+    seconds = sum(s["rollout_seconds"] + s["update_seconds"] for s in steps)
+    control_steps = n_steps * cfg.k_unrolls * cfg.unroll_length
+    frames = (n_steps + 1) * cfg.steps_per_training_step
+    changed = all(not torch.equal(a, b.detach()) for a, b in zip(before, ts.net.parameters()))
+    finite = all(np.isfinite(v) for s in steps for v in s.values()) and all(
+        torch.isfinite(p).all().item() for p in ts.net.parameters())
+    count = float(ts.normalizer.count)
+    ok = (launches == control_steps and launches_hfield == control_steps and finite and changed
+          and count == frames and ts.env_steps == frames)
+    emit({"phase": "ppo_step", "task": "rough_terrain_backlash", "envs": cfg.num_envs,
+          "unroll_length": cfg.unroll_length, "num_minibatches": cfg.num_minibatches,
+          "num_updates_per_batch": cfg.num_updates_per_batch, "batch_size": cfg.batch_size,
+          "policy": list(cfg.policy_hidden_layer_sizes), "value": list(cfg.value_hidden_layer_sizes),
+          "training_steps": n_steps, "control_steps": control_steps, "kernel_launches": launches,
+          "heightfield_kernel_launches": launches_hfield, "steps": steps,
+          "seconds_per_training_step": seconds / n_steps,
+          "rollout_share": sum(s["rollout_seconds"] for s in steps) / seconds,
+          "update_share": sum(s["update_seconds"] for s in steps) / seconds,
+          "env_steps_per_s": n_steps * cfg.steps_per_training_step / seconds,
+          "params_changed": changed, "finite": finite, "normalizer_count": count,
+          "frames_seen": frames, "env_steps": ts.env_steps, "ok": ok, "card": smi})
+    if not ok:
+        raise SystemExit(f"ppo_step failed: {launches} launches for {control_steps} control steps, "
+                         f"finite {finite}, params changed {changed}, normalizer count {count} "
+                         f"for {frames} frames")
+    return launches_hfield
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
+        return 2
+
+    P = load_modules()
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
+          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
+    P.F.pin_f32()
+
+    flat = P.loader.load_model(device=dev, dtype=torch.float32, timestep=0.002)
+    rough = P.loader.load_model("scene_rough_terrain_backlash", device=dev, dtype=torch.float32,
+                                timestep=0.002)
+    build_phase(P, {"megakernel_step": flat, "megakernel_step_hfield": rough})
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    row_flat = kernel_phase(P, "megakernel_step", flat, gen, P.MK.TPU_KERNEL, timing_reps=10)
+    row_hfield = kernel_phase(P, "megakernel_step_hfield", rough, gen, P.MK.TPU_KERNEL_HFIELD,
+                              timing_reps=10)
+    row_flat["launches"] = rollout_phase(P, gen, smi, steps=5)
+    row_probe = probe_phase(P, gen, smi)
+    row_hfield["launches"] = ppo_phase(P, gen, smi)
+
+    emit({"kernels": [row_flat, row_hfield, row_probe], "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

@@ -4,6 +4,8 @@
 // megakernel_step_batched (pl.pallas_call at :2178), the only TPU kernel on
 // the training rollout. One thread steps one env through all substeps of a
 // control step; blocks of MK_BLOCK threads, the ragged last block masked.
+// With -DMK_HFIELD=1 the floor is a heightfield (the TPU kernel's IS_HFIELD
+// branch, :1098): the launch carries one more pointer, the height table.
 //
 // What bounds it on an H100: neither HBM bytes (~2.3 KB per env and control
 // step) nor f32 operations at the 67 TFLOP/s peak, but latency: each thread

@@ -6,11 +6,17 @@
 // per CUDA thread. The math is the dense form of the torch engine in
 // physics/*.py (its plain version is forward.step_reference):
 //   FK -> CoM/cdof -> composite-inertia mass matrix -> velocities -> RNE
-//   bias -> passive + servo forces -> dense Cholesky -> hull-vs-plane
+//   bias -> passive + servo forces -> dense Cholesky -> hull-vs-floor
 //   contacts (4 deepest vertices per foot) -> constraint rows (dof
 //   friction, joint limits, pyramid facets) -> Newton (1 iteration,
 //   5-step analytic linesearch) -> sensors (last substep) -> semi-implicit
 //   Euler.
+// The floor is a plane, or with -DMK_HFIELD=1 a heightfield (the IS_HFIELD
+// branch of the TPU kernel): the height and the triangle normal under each
+// hull vertex are read straight from the height table in device memory, so
+// every contact has its own normal and tangent frame. The TPU kernel's
+// per-foot patches, tile table and one-hot contractions stand in for a
+// per-lane gather that a CUDA thread simply does.
 // State stays in thread-local storage across the substeps; device memory is
 // read once and written once per control step.
 //
@@ -35,6 +41,10 @@
     !defined(MK_NSENSOR) || !defined(MK_NFOOT) || !defined(MK_NVERT) ||                \
     !defined(MK_KPTS) || !defined(MK_NFRIC) || !defined(MK_NLIM)
 #error "model dimensions must be given with -D flags (physics/megakernel.py)"
+#endif
+
+#ifndef MK_HFIELD
+#define MK_HFIELD 0
 #endif
 
 #if MK_NV > 32 || MK_NVERT > 32
@@ -122,6 +132,14 @@ struct MkModel {
   float timestep;
   int iterations;
   int ls_iterations;
+#if MK_HFIELD
+  int hf_nrow;                          // heightfield grid, rows along y
+  int hf_ncol;
+  float hf_sx;                          // half extents in x and y
+  float hf_sy;
+  float hf_dx;                          // cell size: 2 sx / (ncol - 1)
+  float hf_dy;
+#endif
 };
 
 // Per-env tensors, row-major with the env axis first. Inputs: the state,
@@ -143,6 +161,9 @@ struct MkArgs {
   const float* mass;      // (B, nbody)
   const float* ipos;      // (B, nbody, 3)
   const float* mu;        // (B,) floor sliding friction
+#if MK_HFIELD
+  const float* hfield;    // (nrow, ncol) heights in the floor geom's frame, shared by all envs
+#endif
   float* o_qpos;          // (B, nq)
   float* o_qvel;          // (B, nv)
   float* o_qacc;          // (B, nv)
@@ -156,7 +177,9 @@ struct MkArgs {
   int n_substeps;
 };
 
-#define MK_NPTR 23
+// Pointers of one launch, in MkArgs order: 14 inputs, the height table
+// where there is one, 9 outputs.
+#define MK_NPTR (23 + MK_HFIELD)
 
 MK_HD inline MkArgs mk_args(const void* const* p, int batch, int n_substeps) {
   MkArgs a;
@@ -174,15 +197,19 @@ MK_HD inline MkArgs mk_args(const void* const* p, int batch, int n_substeps) {
   a.mass = (const float*)p[11];
   a.ipos = (const float*)p[12];
   a.mu = (const float*)p[13];
-  a.o_qpos = (float*)p[14];
-  a.o_qvel = (float*)p[15];
-  a.o_qacc = (float*)p[16];
-  a.o_warm = (float*)p[17];
-  a.o_site_xpos = (float*)p[18];
-  a.o_site_xmat = (float*)p[19];
-  a.o_actuator_force = (float*)p[20];
-  a.o_contact_dist = (float*)p[21];
-  a.o_sensordata = (float*)p[22];
+#if MK_HFIELD
+  a.hfield = (const float*)p[14];
+#endif
+  const void* const* o = p + 14 + MK_HFIELD;
+  a.o_qpos = (float*)o[0];
+  a.o_qvel = (float*)o[1];
+  a.o_qacc = (float*)o[2];
+  a.o_warm = (float*)o[3];
+  a.o_site_xpos = (float*)o[4];
+  a.o_site_xmat = (float*)o[5];
+  a.o_actuator_force = (float*)o[6];
+  a.o_contact_dist = (float*)o[7];
+  a.o_sensordata = (float*)o[8];
   a.batch = batch;
   a.n_substeps = n_substeps;
   return a;
@@ -302,6 +329,55 @@ MK_HD inline float impedance(const float* solimp, float pos) {
   float y = x < mid ? a * powf(x, power) : 1 - b * powf(1 - x, power);
   return mk_clamp(dmin + y * (dmax - dmin), MK_MINIMP, MK_MAXIMP);
 }
+
+#if MK_HFIELD
+// One height of the table, through the read-only path on the card.
+MK_HD inline float hf_at(const float* z, int idx) {
+#ifdef __CUDA_ARCH__
+  return __ldg(z + idx);
+#else
+  return z[idx];
+#endif
+}
+
+// Height and unit normal of the heightfield triangle under (x, y) of the
+// floor geom's frame (collision._hfield_height_normal): x spans [-sx, sx]
+// over the columns, y spans [-sy, sy] over the rows, each cell splits along
+// its (+x, +y) diagonal, and a point outside the grid takes the border cell.
+// A NaN coordinate reads cell 0 and gives a NaN height.
+MK_HD inline float hfield_height_normal(const MkModel& M, const float* z, float x, float y,
+                                        float* n) {
+  float fx = mk_clamp((x + M.hf_sx) / M.hf_dx, 0.0f, (float)(M.hf_ncol - 1.001));
+  float fy = mk_clamp((y + M.hf_sy) / M.hf_dy, 0.0f, (float)(M.hf_nrow - 1.001));
+  float fi = floorf(fx), fj = floorf(fy);
+  int i = fx == fx ? (int)fi : 0, j = fy == fy ? (int)fj : 0;
+  float u = fx - fi, v = fy - fj;
+  float z00 = hf_at(z, j * M.hf_ncol + i), z10 = hf_at(z, j * M.hf_ncol + i + 1);
+  float z01 = hf_at(z, (j + 1) * M.hf_ncol + i), z11 = hf_at(z, (j + 1) * M.hf_ncol + i + 1);
+  bool lower = u + v <= 1.0f;  // triangle (00, 10, 01), else (11, 10, 01)
+  float h = lower ? z00 + u * (z10 - z00) + v * (z01 - z00)
+                  : z11 + (1 - u) * (z01 - z11) + (1 - v) * (z10 - z11);
+  float nx = lower ? -(z10 - z00) / M.hf_dx : (z01 - z11) / M.hf_dx;
+  float ny = lower ? -(z01 - z00) / M.hf_dy : (z10 - z11) / M.hf_dy;
+  float nrm = sqrtf(nx * nx + ny * ny + 1.0f);
+  n[0] = nx / nrm;
+  n[1] = ny / nrm;
+  n[2] = 1.0f / nrm;
+  return h;
+}
+#endif
+
+// The normal and tangents of contact c: one frame for all contacts on a
+// plane, one per contact on a heightfield.
+#if MK_HFIELD
+#define MK_CN(c) normal[c]
+#define MK_CT1(c) t1[c]
+#define MK_CT2(c) t2[c]
+#else
+#define MK_CN(c) normal
+#define MK_CT1(c) t1
+#define MK_CT2(c) t2
+#endif
 
 // In-place outer-product Cholesky of a packed lower triangle, with the
 // engine's pivot floor (linalg.cholesky).
@@ -443,7 +519,11 @@ MK_HD inline void mk_env_step(const MkModel& M, const MkArgs& a, int e) {
   float qfrc[MK_NV], qacc_smooth[MK_NV], qacc[MK_NV];
   float force[MK_NU];
   float con_dist[MK_NCON], con_pos[MK_NCON][3];
+#if MK_HFIELD
+  float normal[MK_NCON][3], t1[MK_NCON][3], t2[MK_NCON][3];
+#else
   float normal[3], t1[3], t2[3];
+#endif
   MkRows rows;
 
   for (int sub = 0; sub < a.n_substeps; sub++) {
@@ -621,6 +701,49 @@ MK_HD inline void mk_env_step(const MkModel& M, const MkArgs& a, int e) {
     chol_solve_packed(H, qacc_smooth);
 
     // ---- contacts: the KPTS deepest hull vertices of each foot
+#if MK_HFIELD
+    {
+      int fb = M.floor_body;
+      float fpos[3], t[3];
+      quat_rot(xquat[fb], M.floor_gpos, t);
+      for (int k = 0; k < 3; k++) fpos[k] = xpos[fb][k] + t[k];
+      for (int f = 0; f < MK_NFOOT; f++) {
+        int b = M.foot_body[f];
+        float gpos[3], gquat[4], vert[MK_NVERT][3], d[MK_NVERT], nv[3];
+        quat_rot(xquat[b], M.foot_gpos[f], t);
+        for (int k = 0; k < 3; k++) gpos[k] = xpos[b][k] + t[k];
+        quat_mul(xquat[b], M.foot_gquat[f], gquat);
+        for (int v = 0; v < MK_NVERT; v++) {
+          quat_rot(gquat, M.foot_hull[f][v], t);
+          for (int k = 0; k < 3; k++) vert[v][k] = gpos[k] + t[k];
+          // height above the triangle under the vertex, onto its normal
+          float h = hfield_height_normal(M, a.hfield, vert[v][0] - fpos[0], vert[v][1] - fpos[1], nv);
+          d[v] = ((vert[v][2] - fpos[2]) - h) * nv[2];
+        }
+        unsigned int used = 0u;
+        for (int s = 0; s < MK_KPTS; s++) {
+          int best = -1;
+          for (int v = 0; v < MK_NVERT; v++) {
+            if (used & (1u << v)) continue;
+            if (best < 0 || d[v] < d[best]) best = v;
+          }
+          used |= 1u << best;
+          int c = f * MK_KPTS + s;
+          // the chosen vertex's normal again, rather than one kept per vertex
+          hfield_height_normal(M, a.hfield, vert[best][0] - fpos[0], vert[best][1] - fpos[1], normal[c]);
+          con_dist[c] = d[best];
+          for (int k = 0; k < 3; k++) con_pos[c][k] = vert[best][k] - 0.5f * d[best] * normal[c][k];
+          // tangent frame (mju_makeFrame): reference axis least aligned with n
+          float r[3] = {0.0f, 0.0f, 0.0f};
+          r[fabsf(normal[c][0]) <= fabsf(normal[c][1]) ? 0 : 1] = 1.0f;
+          cross3(normal[c], r, t1[c]);
+          float n1 = sqrtf(dot3(t1[c], t1[c]));
+          for (int k = 0; k < 3; k++) t1[c][k] /= n1;
+          cross3(normal[c], t1[c], t2[c]);
+        }
+      }
+    }
+#else
     {
       int fb = M.floor_body;
       float fpos[3], fquat[4], t[3];
@@ -665,6 +788,7 @@ MK_HD inline void mk_env_step(const MkModel& M, const MkArgs& a, int e) {
       for (int k = 0; k < 3; k++) t1[k] /= n1;
       cross3(normal, t1, t2);
     }
+#endif
 
     // ---- constraint rows
     for (int i = 0; i < MK_NFRIC; i++) {
@@ -705,7 +829,8 @@ MK_HD inline void mk_env_step(const MkModel& M, const MkArgs& a, int e) {
       for (int tt = 0; tt < 2; tt++)
         for (int sg = 0; sg < 2; sg++)
           for (int k = 0; k < 3; k++)
-            dirs[2 * tt + sg][k] = normal[k] + ((sg ? -1.0f : 1.0f) * mu) * (tt ? t2[k] : t1[k]);
+            dirs[2 * tt + sg][k] =
+                MK_CN(c)[k] + ((sg ? -1.0f : 1.0f) * mu) * (tt ? MK_CT2(c)[k] : MK_CT1(c)[k]);
       float rel[3];
       for (int k = 0; k < 3; k++) rel[k] = con_pos[c][k] - com[k];
       unsigned int anc = M.body_dofs[fb];

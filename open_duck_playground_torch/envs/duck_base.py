@@ -13,7 +13,11 @@ from open_duck_playground_torch.models import loader
 from open_duck_playground_torch.physics import forward as F
 from open_duck_playground_torch.physics.types import Data, Model
 
-TASKS = {"flat_terrain_backlash": "scene_flat_terrain_backlash"}
+TASKS = {
+    "flat_terrain_backlash": "scene_flat_terrain_backlash",
+    "rough_terrain_backlash": "scene_rough_terrain_backlash",
+    "rough_terrain": "scene_rough_terrain",
+}
 
 FEET_SITES = ["left_foot", "right_foot"]
 JOINTS_ORDER_NO_HEAD = [

@@ -199,6 +199,13 @@ class Joystick(DuckEnv):
         m = self._model
         dev = self.device
         self._init_q = m.key_qpos.clone()
+        if m.spec.floor_is_hfield:
+            # the "home" keyframe is authored for the flat floor (z = 0); on
+            # a heightfield the feet would spawn up to size[2] inside the
+            # terrain and the solver's kick would tip the robot over, so
+            # spawn above the tallest terrain point (the feet settle within
+            # a few frames under the position servos)
+            self._init_q[2] += float(m.hfield_size[2]) + 0.002
         self._default_actuator = m.key_ctrl.clone()
         self.gait = GaitOracle(device=dev)
         scale = torch.zeros(m.spec.nu)
@@ -219,6 +226,12 @@ class Joystick(DuckEnv):
     @property
     def config(self) -> JoystickConfig:
         return self._config
+
+    def reset_draws(self, gen: torch.Generator, batch: int) -> ResetDraws:
+        return ResetDraws.sample(gen, batch, self)
+
+    def step_draws(self, gen: torch.Generator, batch: int) -> StepDraws:
+        return StepDraws.sample(gen, batch, self)
 
     # ------------------------------------------------------------ reset
     def reset(self, draws: ResetDraws, model: Optional[Model] = None) -> State:

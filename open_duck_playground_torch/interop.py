@@ -40,10 +40,10 @@ def mlp_from_jax(params: Mapping, device="cuda") -> MLP:
     return mlp
 
 
-def policy_from_jax(params_np: Mapping, device="cuda") -> PPONetworks:
-    """PPONetworks from the policy of the JAX {"policy": ..., "value": ...}
-    parameter tree."""
-    return PPONetworks(mlp_from_jax(params_np["policy"], device))
+def networks_from_jax(params_np: Mapping, device="cuda") -> PPONetworks:
+    """PPONetworks from the JAX {"policy": ..., "value": ...} parameter tree."""
+    return PPONetworks(mlp_from_jax(params_np["policy"], device),
+                       mlp_from_jax(params_np["value"], device))
 
 
 def normalizer_from_jax(stats_np: Any, device="cuda") -> RunningStats:

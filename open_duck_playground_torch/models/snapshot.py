@@ -37,7 +37,11 @@ ROBOT_DIR = (
 XML_DIR = ROBOT_DIR / "xmls"
 GAIT_PKL = ROBOT_DIR / "data" / "polynomial_coefficients.pkl"
 
-SCENES = ("scene_flat_terrain_backlash",)
+SCENES = (
+    "scene_flat_terrain_backlash",
+    "scene_rough_terrain_backlash",
+    "scene_rough_terrain",
+)
 
 FREE, HINGE = 0, 3
 

@@ -1,9 +1,10 @@
-"""Collision of the convex foot hulls against a plane floor, batched.
+"""Collision of the convex foot hulls against a plane or heightfield floor,
+batched.
 
 Fixed-slot contacts: the `points_per_foot` deepest hull vertices of each
-foot, active iff dist < 0. Counterpart of
-`open_duck_playground_tpu/physics/collision.py`; its heightfield branch is
-not ported yet, and a heightfield model raises.
+foot, active iff dist < 0. On a heightfield every contact has the normal of
+the triangle under its vertex. Counterpart of
+`open_duck_playground_tpu/physics/collision.py`.
 """
 
 from __future__ import annotations
@@ -36,11 +37,45 @@ def combine_params(m: Model, foot_gid: int, floor_gid: int):
     return friction, solref, solimp
 
 
+def hfield_heights(m: Model) -> torch.Tensor:
+    """(nrow, ncol) heights of the heightfield in its geom's frame,
+    `data * size[2]` in the model's dtype. The CUDA kernel reads this table."""
+    return m.hfield_data * m.hfield_size[2]
+
+
+def _hfield_height_normal(m: Model, x: torch.Tensor, y: torch.Tensor):
+    """Height and unit triangle normal of the heightfield under the points
+    (x, y) of its frame, any shape. MuJoCo grid: data (nrow, ncol) in
+    [0, 1]; x spans [-sx, sx] over columns, y spans [-sy, sy] over rows;
+    z = data * size[2]. Cells split into two triangles along the (+x, +y)
+    diagonal; points outside the grid take the border cell."""
+    s = m.spec
+    sx, sy = m.hfield_size[0], m.hfield_size[1]
+    ncol, nrow = s.hfield_ncol, s.hfield_nrow
+    dx = 2 * sx / (ncol - 1)
+    dy = 2 * sy / (nrow - 1)
+    fx = torch.clamp((x + sx) / dx, 0.0, ncol - 1.001)
+    fy = torch.clamp((y + sy) / dy, 0.0, nrow - 1.001)
+    fi, fj = torch.floor(fx), torch.floor(fy)
+    # a NaN coordinate (a blown-up env, kept for the quarantine) reads a
+    # cell inside the table and still gives a NaN height
+    i, j = fi.long().clamp(0, ncol - 2), fj.long().clamp(0, nrow - 2)
+    u, v = fx - fi, fy - fj
+    z = hfield_heights(m)
+    z00, z10, z01, z11 = z[j, i], z[j, i + 1], z[j + 1, i], z[j + 1, i + 1]
+    lower = u + v <= 1.0  # triangle (00, 10, 01), else (11, 10, 01)
+    h_lo = z00 + u * (z10 - z00) + v * (z01 - z00)
+    h_hi = z11 + (1 - u) * (z01 - z11) + (1 - v) * (z10 - z11)
+    h = torch.where(lower, h_lo, h_hi)
+    nx = torch.where(lower, -(z10 - z00) / dx, (z01 - z11) / dx)
+    ny = torch.where(lower, -(z01 - z00) / dy, (z10 - z11) / dy)
+    n = torch.stack([nx, ny, torch.ones_like(nx)], dim=-1)
+    return h, n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+
+
 def collide(m: Model, xpos, xquat) -> Contact:
     """Fixed-slot contact set of every foot against the floor."""
     s = m.spec
-    if s.floor_is_hfield:
-        raise NotImplementedError("heightfield floors are not ported yet")
     k = s.points_per_foot
     B, dtype, dev = xpos.shape[0], xpos.dtype, xpos.device
 
@@ -57,11 +92,19 @@ def collide(m: Model, xpos, xquat) -> Contact:
         gpos = xpos[:, b] + maths.quat_rotate(xquat[:, b], m.geom_pos[gid])
         gquat = maths.quat_mul(xquat[:, b], m.geom_quat[gid])
         verts = gpos[:, None, :] + maths.quat_rotate(gquat[:, None, :], m.foot_hull[fi])
-        d = torch.matmul((verts - floor_pos[:, None, :]), n[:, :, None])[..., 0]
+        rel = verts - floor_pos[:, None, :]
+        if s.floor_is_hfield:
+            # the heightfield is axis-aligned in the floor body's frame
+            # (identity on the duck scenes)
+            h, n_vert = _hfield_height_normal(m, rel[..., 0], rel[..., 1])
+            d = (rel[..., 2] - h) * n_vert[..., 2]  # height above, onto the normal
+        else:
+            d = torch.matmul(rel, n[:, :, None])[..., 0]
         neg_d, idx = torch.topk(-d, k, dim=-1)
-        vsel = torch.gather(verts, 1, idx[..., None].expand(B, k, 3))
+        pick = idx[..., None].expand(B, k, 3)
+        vsel = torch.gather(verts, 1, pick)
         dist = -neg_d
-        normal = n[:, None, :].expand(B, k, 3)
+        normal = torch.gather(n_vert, 1, pick) if s.floor_is_hfield else n[:, None, :].expand(B, k, 3)
 
         pos = vsel - 0.5 * dist[..., None] * normal
         # tangent frame, mju_makeFrame convention: reference axis = the world

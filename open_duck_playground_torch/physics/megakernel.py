@@ -3,7 +3,10 @@
 Replaces the Pallas TPU kernel
 `open_duck_playground_tpu/physics/megakernel.py:megakernel_step_batched`
 (`pl.pallas_call` at :2178): all `n_substeps` substeps of one control step,
-one env per CUDA thread, state in thread-local storage between substeps.
+one env per CUDA thread, state in thread-local storage between substeps. A
+plane floor and a heightfield floor (the TPU kernel's `IS_HFIELD` branch)
+are two builds of the same source, told apart by `-DMK_HFIELD`; the
+heightfield build reads the height table straight from device memory.
 
 What bounds it on an H100: not HBM (about 2.3 KB in and out per env and
 control step) and not the f32 operations at peak, but latency: each thread
@@ -17,32 +20,28 @@ More threads per env and the block-arrow forms of
 
 The wrapper takes CUDA tensors only; `forward.step` sends CPU tensors to
 the plain version, `forward.step_reference`. The kernel is built with `nvcc` at first use into
-`build/kernels/` (one library per model shape) and bound with ctypes.
+`build/kernels/` (one library per model shape, `cuda_build.build`) and bound with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from open_duck_playground_torch import cuda_build
+from open_duck_playground_torch.physics import collision as C
 from open_duck_playground_torch.physics import constraint as CN
 from open_duck_playground_torch.physics import structure
 from open_duck_playground_torch.physics.types import (
     FREE, RANDOMIZED_FIELDS, Data, Model, ModelSpec,
 )
 
-CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
+CSRC = cuda_build.CSRC
 TPU_KERNEL = "open_duck_playground_tpu/physics/megakernel.py:2178"
+TPU_KERNEL_HFIELD = "open_duck_playground_tpu/physics/megakernel.py:1098"
 
 SENSOR_KINDS = (
     "gyro",
@@ -57,12 +56,15 @@ SENSOR_KINDS = (
 )
 
 # Kernel launches since the last reset; one per `megakernel_step` on a card.
+# `launches_hfield` counts those of them that ran the heightfield build.
 launches = 0
+launches_hfield = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, launches_hfield
     launches = 0
+    launches_hfield = 0
 
 
 # ------------------------------------------------------------ model tables
@@ -82,6 +84,7 @@ def kernel_dims(spec: ModelSpec) -> Dict[str, int]:
         KPTS=spec.points_per_foot,
         NFRIC=len(spec.friction_dofs),
         NLIM=len(structure.limited_hinges(spec)),
+        HFIELD=int(spec.floor_is_hfield),
     )
 
 
@@ -91,6 +94,14 @@ def _struct_fields(d: Dict[str, int]) -> List[Tuple[str, str, Tuple[int, ...]]]:
         d["NBODY"], d["NJNT"], d["NV"], d["NU"], d["NSITE"], d["NSENSOR"],
         d["NFOOT"], d["NLIM"], d["NFRIC"],
     )
+    hfield = [
+        ("hf_nrow", "i", ()),
+        ("hf_ncol", "i", ()),
+        ("hf_sx", "f", ()),
+        ("hf_sy", "f", ()),
+        ("hf_dx", "f", ()),
+        ("hf_dy", "f", ()),
+    ] if d["HFIELD"] else []
     return [
         ("body_parent", "i", (B,)),
         ("body_jntadr", "i", (B,)),
@@ -147,7 +158,7 @@ def _struct_fields(d: Dict[str, int]) -> List[Tuple[str, str, Tuple[int, ...]]]:
         ("timestep", "f", ()),
         ("iterations", "i", ()),
         ("ls_iterations", "i", ()),
-    ]
+    ] + hfield
 
 
 _CTYPES = {"i": ctypes.c_int32, "u": ctypes.c_uint32, "f": ctypes.c_float}
@@ -168,7 +179,20 @@ def check_supported(m: Model) -> None:
     """Raise on a model the kernel does not cover."""
     s = m.spec
     if s.floor_is_hfield:
-        raise NotImplementedError("the CUDA kernel has no heightfield branch yet")
+        # the kernel reads the height table in the world's axes: a static,
+        # unrotated, un-offset heightfield body (true of the duck's rough
+        # scenes; the plain version assumes the same)
+        b = s.geom_bodyid[s.floor_geom_id]
+        while b != 0:
+            if s.body_jntnum[b] != 0:
+                raise NotImplementedError("the heightfield body must be static")
+            if m.body_pos[b].abs().max() > 0 or m.body_quat[b].tolist() != [1.0, 0.0, 0.0, 0.0]:
+                raise NotImplementedError("an offset or rotated heightfield body is unsupported")
+            b = s.body_parentid[b]
+        if abs(float(m.geom_quat[s.floor_geom_id, 0]) - 1.0) >= 1e-6:
+            raise NotImplementedError("a rotated heightfield is unsupported")
+        if s.hfield_nrow < 2 or s.hfield_ncol < 2:
+            raise NotImplementedError("the heightfield needs at least 2 x 2 samples")
     pr = m.geom_priority.cpu()
     floor = int(pr[s.floor_geom_id])
     if any(int(pr[g]) >= floor for g in s.collide_geom_ids):
@@ -202,6 +226,19 @@ def model_tables(m: Model) -> Dict[str, np.ndarray]:
     fric_R = torch.clamp((1 - imp_f) / imp_f * cpu(m.dof_invweight0)[fd], min=CN.MINVAL)
     lim_k, lim_b = CN.kb(cpu(m.jnt_solref)[lim], cpu(m.jnt_solimp)[lim])
     con_k, con_b = CN.kb(cpu(m.geom_solref)[floor], cpu(m.geom_solimp)[floor])
+
+    hfield = {}
+    if s.floor_is_hfield:
+        # the cell sizes as the plain version computes them, in f32
+        sx, sy = cpu(m.hfield_size)[0], cpu(m.hfield_size)[1]
+        hfield = dict(
+            hf_nrow=np.array(s.hfield_nrow),
+            hf_ncol=np.array(s.hfield_ncol),
+            hf_sx=sx.numpy(),
+            hf_sy=sy.numpy(),
+            hf_dx=(2 * sx / (s.hfield_ncol - 1)).numpy(),
+            hf_dy=(2 * sy / (s.hfield_nrow - 1)).numpy(),
+        )
 
     return dict(
         body_parent=np.array(s.body_parentid),
@@ -259,6 +296,7 @@ def model_tables(m: Model) -> Dict[str, np.ndarray]:
         timestep=np.array(s.timestep),
         iterations=np.array(s.iterations),
         ls_iterations=np.array(s.ls_iterations),
+        **hfield,
     )
 
 
@@ -280,9 +318,20 @@ def model_struct(m: Model):
 
 
 # ------------------------------------------------------------ per-env tensors
-def kernel_tensors(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int):
+def hfield_table(m: Model) -> torch.Tensor:
+    """The (nrow, ncol) f32 height table the heightfield build reads."""
+    z = C.hfield_heights(m).contiguous()
+    if z.dtype != torch.float32 or tuple(z.shape) != (m.spec.hfield_nrow, m.spec.hfield_ncol):
+        raise TypeError(f"height table must be float32 (nrow, ncol), got {z.dtype} {tuple(z.shape)}")
+    return z
+
+
+def kernel_tensors(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int,
+                   hfield: Optional[torch.Tensor] = None):
     """(inputs, outputs) of one launch, in MkArgs order. Inputs are checked,
-    outputs allocated with torch.empty on the inputs' device."""
+    outputs allocated with torch.empty on the inputs' device. On a
+    heightfield model the height table is the last input: `hfield` where the
+    caller keeps one, else a fresh `hfield_table(m)`."""
     s = m.spec
     if n_substeps < 1:
         raise ValueError("n_substeps must be >= 1")
@@ -319,6 +368,11 @@ def kernel_tensors(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int):
         per_env(m.body_ipos, (s.nbody, 3)),
         per_env(m.geom_friction[..., fl, 0], ()),
     ]
+    if s.floor_is_hfield:
+        table = hfield_table(m) if hfield is None else hfield
+        if table.device != dev:
+            raise TypeError(f"height table on {table.device}, state on {dev}")
+        inputs.append(table)
     e = lambda *shape: torch.empty((B,) + shape, dtype=torch.float32, device=dev)
     outputs = [
         e(s.nq), e(s.nv), e(s.nv), e(s.nv), e(s.nsite, 3), e(s.nsite, 3, 3),
@@ -341,16 +395,6 @@ def pointer_array(tensors) -> ctypes.Array:
 
 
 # ------------------------------------------------------------ build and bind
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA megakernel is built on the machine with the card")
-
-
 def dim_flags(dims: Dict[str, int]) -> List[str]:
     return [f"-DMK_{k}={v}" for k, v in sorted(dims.items())]
 
@@ -360,29 +404,9 @@ class _Kernel:
 
     def __init__(self, dims: Dict[str, int]):
         self.dims = dims
-        src = CSRC / "megakernel.cu"
-        flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                 "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *dim_flags(dims)]
-        digest = hashlib.sha1(
-            (src.read_bytes() + (CSRC / "megakernel.cuh").read_bytes()
-             + " ".join(flags).encode())
-        ).hexdigest()[:12]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        self.path = BUILD_DIR / f"libmegakernel_{digest}.so"
-        log = self.path.with_suffix(".log")
-        self.build_seconds = 0.0
-        if not self.path.exists():
-            tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            res = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
-                                 capture_output=True, text=True)
-            self.build_seconds = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-            log.write_text(res.stderr)
-            os.replace(tmp, self.path)
-        self.build_log = log.read_text() if log.exists() else ""
-        lib = ctypes.CDLL(str(self.path))
+        built = cuda_build.build("megakernel.cu", dim_flags(dims), headers=("megakernel.cuh",))
+        self.build_seconds, self.ptxas = built.build_seconds, built.ptxas_lines()
+        lib = built.lib
         lib.mk_model_size.restype = ctypes.c_int
         lib.mk_block_size.restype = ctypes.c_int
         lib.mk_set_model.argtypes = [ctypes.c_void_p]
@@ -396,26 +420,31 @@ class _Kernel:
         if lib.mk_model_size() != ctypes.sizeof(self.struct_type):
             raise RuntimeError("MkModel layout differs between megakernel.cuh and the wrapper")
         # per device index: the model whose structure is in that device's
-        # constant memory
+        # constant memory, and its height table (None on a plane)
         self._uploaded: Dict[int, Tuple] = {}
+        self._hfield: Dict[int, Optional[torch.Tensor]] = {}
 
-    def upload(self, m: Model) -> None:
+    def upload(self, m: Model) -> Optional[torch.Tensor]:
         """Put the model's structure tables in constant memory of the
         current device when they are not there yet (`model_tables` checks
-        that the kernel supports the model). Domain randomization replaces
-        only the per-env fields, so a randomized model keeps the upload."""
+        that the kernel supports the model), and make the height table of a
+        heightfield model, once per model. Domain randomization replaces
+        only the per-env fields, so a randomized model keeps the upload.
+        Returns the height table (None on a plane)."""
         key = (m.spec,) + tuple(
             getattr(m, f) for f in m.__dataclass_fields__ if f != "spec" and f not in RANDOMIZED_FIELDS
         )
         dev = torch.cuda.current_device()
         done = self._uploaded.get(dev, ())
         if len(key) == len(done) and all(a is b for a, b in zip(key, done)):
-            return
+            return self._hfield[dev]
         st = model_struct(m)
         err = self.lib.mk_set_model(ctypes.byref(st))
         if err:
             raise RuntimeError(f"mk_set_model failed: CUDA error {err}")
         self._uploaded[dev] = key
+        self._hfield[dev] = hfield_table(m) if m.spec.floor_is_hfield else None
+        return self._hfield[dev]
 
     def info(self) -> Dict[str, int]:
         """Local memory, registers, occupancy of the built kernel."""
@@ -444,19 +473,18 @@ def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int) -> D
     """n_substeps substeps of every env in one launch of the CUDA kernel.
     Takes CUDA tensors only (`forward.step` routes CPU tensors to the plain
     version)."""
-    global launches
+    global launches, launches_hfield
     if not d.qpos.is_cuda:
         raise TypeError(f"the CUDA kernel takes CUDA tensors, got qpos on {d.qpos.device}")
-    if m.spec.floor_is_hfield:
-        raise NotImplementedError("the CUDA kernel has no heightfield branch yet")
     k = kernel(m.spec)
-    inputs, outputs = kernel_tensors(m, d, ctrl, n_substeps)
-    ptrs = pointer_array(inputs + outputs)
     stream = torch.cuda.current_stream(d.qpos.device).cuda_stream
     with torch.cuda.device(d.qpos.device):
-        k.upload(m)
+        hfield = k.upload(m)
+        inputs, outputs = kernel_tensors(m, d, ctrl, n_substeps, hfield)
+        ptrs = pointer_array(inputs + outputs)
         err = k.lib.mk_step(ptrs, d.qpos.shape[0], n_substeps, stream)
     if err:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     launches += 1
+    launches_hfield += int(m.spec.floor_is_hfield)
     return data_from_outputs(d, ctrl, outputs)

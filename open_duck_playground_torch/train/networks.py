@@ -1,11 +1,13 @@
 """Actor/critic MLPs and the tanh-Normal action distribution (brax
-semantics). Counterpart of `open_duck_playground_tpu/train/networks.py` for
-the rollout: init, forward, sampling, postprocess and the deterministic
-action. `log_prob` and `entropy` come with the PPO update.
+semantics). Counterpart of `open_duck_playground_tpu/train/networks.py`:
+init, forward, sampling, postprocess, the deterministic action, `log_prob`
+and `entropy`. Random numbers are arguments (`noise`), never drawn here
+except by `normal_noise` from an explicit generator.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -14,6 +16,7 @@ from torch import nn
 from open_duck_playground_torch.physics.forward import pin_f32
 
 _MIN_STD = 0.001
+_LOG2 = 0.6931471805599453
 
 
 class MLP(nn.Module):
@@ -47,30 +50,65 @@ class MLP(nn.Module):
 
 
 class PPONetworks(nn.Module):
-    """The policy MLP over the `state` obs (the value MLP comes with the
-    PPO update)."""
+    """The policy MLP over the `state` obs and the value MLP over the
+    `privileged_state` obs (asymmetric actor-critic)."""
 
-    def __init__(self, policy: MLP, policy_obs_key: str = "state"):
+    def __init__(self, policy: MLP, value: MLP, policy_obs_key: str = "state",
+                 value_obs_key: str = "privileged_state"):
         super().__init__()
         self.policy = policy
+        self.value_mlp = value
         self.policy_obs_key = policy_obs_key
+        self.value_obs_key = value_obs_key
 
     @classmethod
     def init(cls, obs_sizes: Dict[str, int], action_size: int, policy_hidden: Sequence[int],
-             generator: torch.Generator, device="cuda", policy_obs_key: str = "state"):
+             generator: torch.Generator, device="cuda", policy_obs_key: str = "state",
+             value_hidden: Sequence[int] = (256, 256, 256, 256),
+             value_obs_key: str = "privileged_state"):
         policy = MLP((obs_sizes[policy_obs_key], *policy_hidden, 2 * action_size),
                      generator, device)
-        return cls(policy, policy_obs_key)
+        value = MLP((obs_sizes[value_obs_key], *value_hidden, 1), generator, device)
+        return cls(policy, value, policy_obs_key, value_obs_key)
 
     def policy_logits(self, norm_obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self.policy(norm_obs[self.policy_obs_key])
+
+    def value(self, norm_obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.value_mlp(norm_obs[self.value_obs_key])[..., 0]
 
 
 def dist_params(logits: torch.Tensor):
     loc, raw_scale = torch.chunk(logits, 2, dim=-1)
     # softplus as log(1 + e^x), like jax.nn.softplus (no linear cut-over)
-    scale = torch.logaddexp(raw_scale, torch.zeros_like(raw_scale)) + _MIN_STD
+    scale = _softplus(raw_scale) + _MIN_STD
     return loc, scale
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _tanh_log_det_jac(raw: torch.Tensor) -> torch.Tensor:
+    return 2.0 * (_LOG2 - raw - _softplus(-2.0 * raw))
+
+
+def log_prob(logits: torch.Tensor, raw_action: torch.Tensor) -> torch.Tensor:
+    """Log-density of tanh(raw) under the squashed distribution, summed over
+    the action dims."""
+    loc, scale = dist_params(logits)
+    z = (raw_action - loc) / scale
+    lp = -0.5 * z * z - 0.5 * math.log(2 * math.pi) - torch.log(scale)
+    return torch.sum(lp - _tanh_log_det_jac(raw_action), dim=-1)
+
+
+def entropy(logits: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Entropy estimate: the base Normal's entropy plus the log-det-jacobian
+    at one sample, drawn with standard-normal `noise` (brax's estimator)."""
+    loc, scale = dist_params(logits)
+    base = 0.5 + 0.5 * math.log(2 * math.pi) + torch.log(scale)
+    raw = loc + scale * noise
+    return torch.sum(base + _tanh_log_det_jac(raw), dim=-1)
 
 
 def sample_raw(logits: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:

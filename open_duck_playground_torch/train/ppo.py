@@ -1,0 +1,320 @@
+"""PPO trainer: rollout with the normalizer's moments accumulated in the
+loop, truncation-aware GAE, clipped surrogate loss, minibatched SGD, running
+obs normalization, asymmetric actor-critic. Counterpart of
+`open_duck_playground_tpu/train/ppo.py` (`training_step` and the `train`
+loop around it) in eager PyTorch with autograd: the update is small matrix
+products and elementwise code, which the JAX package also computes outside
+any hand-written kernel. The physics of every rollout step goes through
+`forward.step`, on the card the CUDA megakernel.
+
+Random numbers are drawn up front from an explicit `torch.Generator`
+(`unroll_draws`, `sgd_draws`), or injected in the same form so a test can
+replay them.
+
+Not ported yet, and `train` raises on a request for any of them: periodic
+evaluation (`num_evals > 1`, `eval_env`), the eval/hook pipelining
+(`policy_params_fn`), checkpoint restore, `bf16_matmuls`, a device mesh and
+`action_repeat > 1`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from open_duck_playground_torch.envs.env_types import State
+from open_duck_playground_torch.envs.randomize import DRDraws
+from open_duck_playground_torch.envs.wrappers import TrainingEnv
+from open_duck_playground_torch.train import gae, networks as N, running_stats as RS
+from open_duck_playground_torch.train.config import PPOConfig
+
+# optax.adam defaults (eps_root = 0)
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+
+
+@dataclass
+class TrainingState:
+    """What a training step carries over. `net` and `optimizer` are updated
+    in place; `normalizer` and `env_steps` are replaced."""
+
+    net: N.PPONetworks
+    optimizer: torch.optim.Adam
+    normalizer: RS.RunningStats
+    env_steps: int = 0
+
+
+@dataclass(frozen=True)
+class UnrollDraws:
+    """The random numbers of one rollout of L = k * unroll_length steps."""
+
+    action_noise: torch.Tensor  # (L, num_envs, action_size) standard normal
+    env: Sequence  # L step draws of the env
+
+
+@dataclass(frozen=True)
+class SGDDraws:
+    """The random numbers of one training step's update."""
+
+    perms: torch.Tensor  # (num_updates_per_batch, k * num_envs) int64, one permutation per epoch
+    entropy_noise: torch.Tensor  # (num_updates_per_batch, num_minibatches, T, batch_size, action_size)
+
+
+def obs_sizes(obs: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    return {k: int(v.shape[-1]) for k, v in obs.items()}
+
+
+def make_optimizer(net: N.PPONetworks, learning_rate: float) -> torch.optim.Adam:
+    """Adam as `optax.adam(learning_rate)`: the same update up to rounding
+    (torch divides sqrt(nu) by sqrt(1 - b2^t) where optax takes
+    sqrt(nu / (1 - b2^t))), one fused pass over all tensors on the card."""
+    return torch.optim.Adam(net.parameters(), lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS,
+                            foreach=True)
+
+
+def init_training_state(obs: Dict[str, torch.Tensor], action_size: int, cfg: PPOConfig,
+                        generator: torch.Generator, device="cuda") -> TrainingState:
+    sizes = obs_sizes(obs)
+    net = N.PPONetworks.init(sizes, action_size, cfg.policy_hidden_layer_sizes, generator,
+                             device=device, policy_obs_key=cfg.policy_obs_key,
+                             value_hidden=cfg.value_hidden_layer_sizes,
+                             value_obs_key=cfg.value_obs_key)
+    return TrainingState(net=net, optimizer=make_optimizer(net, cfg.learning_rate),
+                         normalizer=RS.init(sizes, device=device))
+
+
+# ---------------------------------------------------------------- rollout
+def unroll_draws(env, num_envs: int, length: int, generator: torch.Generator) -> UnrollDraws:
+    noise = torch.randn((length, num_envs, env.action_size), generator=generator,
+                        device=generator.device)
+    return UnrollDraws(action_noise=noise,
+                       env=[env.step_draws(generator, num_envs) for _ in range(length)])
+
+
+def generate_unroll(train_env: TrainingEnv, net: N.PPONetworks, normalizer: RS.RunningStats,
+                    env_state: State, draws: UnrollDraws, accumulate: bool = True):
+    """One policy-in-the-loop env step per draw. Returns (env_state, data,
+    final_obs, moments): data leaves are time-major (length, num_envs, ...),
+    final_obs is the obs after the last step (the GAE bootstrap needs no
+    other next-obs), moments are the normalizer's sums about its old mean,
+    accumulated here while each obs is at hand."""
+    moments = RS.zero_moments(normalizer)
+    steps: List[dict] = []
+    with torch.no_grad():
+        for noise, env_draws in zip(draws.action_noise, draws.env):
+            obs = env_state.obs
+            logits = net.policy_logits(RS.normalize(normalizer, obs))
+            raw = N.sample_raw(logits, noise)
+            env_state = train_env.step(env_state, N.postprocess(raw), env_draws)
+            if accumulate:
+                moments = RS.accumulate_moments(normalizer, moments, obs)
+            steps.append({
+                "obs": obs,
+                "raw_action": raw,
+                "log_prob": N.log_prob(logits, raw),
+                "reward": env_state.reward,
+                "done": env_state.done,
+                "truncation": env_state.info["truncation"],
+            })
+    data = {k: torch.stack([s[k] for s in steps]) for k in steps[0] if k != "obs"}
+    data["obs"] = {k: torch.stack([s["obs"][k] for s in steps]) for k in steps[0]["obs"]}
+    return env_state, data, env_state.obs, moments
+
+
+# ------------------------------------------------------------------- loss
+def loss_fn(net: N.PPONetworks, normalizer: RS.RunningStats, data: dict,
+            final_obs: Dict[str, torch.Tensor], entropy_noise: torch.Tensor, cfg: PPOConfig):
+    """Clipped-surrogate PPO loss of one minibatch. `data` leaves are
+    time-major (T, MB, ...) as the rollout left them, `final_obs` leaves
+    (MB, ...) give the bootstrap value. Returns (total, metrics)."""
+    norm_obs = RS.normalize(normalizer, data["obs"])
+    logits = net.policy_logits(norm_obs)
+    baseline = net.value(norm_obs)
+    bootstrap = net.value(RS.normalize(normalizer, final_obs))
+
+    rewards = data["reward"] * cfg.reward_scaling
+    truncation = data["truncation"]
+    termination = data["done"] * (1 - truncation)
+
+    target_lp = N.log_prob(logits, data["raw_action"])
+    behaviour_lp = data["log_prob"]
+
+    vs, advantages = gae.compute_gae(
+        truncation=truncation, termination=termination, rewards=rewards, values=baseline,
+        bootstrap_value=bootstrap, lambda_=cfg.gae_lambda, discount=cfg.discounting)
+    if cfg.normalize_advantage:
+        # population std, as jnp.std
+        advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
+    rho = torch.exp(target_lp - behaviour_lp)
+    surrogate = rho * advantages
+    clipped = torch.clamp(rho, 1 - cfg.clipping_epsilon, 1 + cfg.clipping_epsilon) * advantages
+    policy_loss = -torch.mean(torch.minimum(surrogate, clipped))
+
+    v_error = vs - baseline
+    v_loss = torch.mean(v_error * v_error) * 0.5 * 0.5
+
+    ent = torch.mean(N.entropy(logits, entropy_noise))
+    entropy_loss = -cfg.entropy_cost * ent
+
+    total = policy_loss + v_loss + entropy_loss
+    return total, {"total_loss": total, "policy_loss": policy_loss, "v_loss": v_loss,
+                   "entropy_loss": entropy_loss}
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors (optax.global_norm), in
+    one fused pass on the card."""
+    return torch.nn.utils.get_total_norm(tensors, norm_type=2.0)
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, norm: torch.Tensor) -> None:
+    """In place, as optax.clip_by_global_norm: untouched below max_norm,
+    else scaled by max_norm / norm. No epsilon, unlike clip_grad_norm_."""
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(list(grads), scale)
+
+
+def apply_gradients(ts: TrainingState, max_grad_norm: Optional[float]) -> Dict[str, torch.Tensor]:
+    """One optimizer step from the gradients in `.grad`: global-norm clip,
+    then Adam. Returns the norms before the step."""
+    params = [p for p in ts.net.parameters() if p.grad is not None]
+    with torch.no_grad():
+        grads = [p.grad for p in params]
+        grad_norm = global_norm(grads)
+        params_norm = global_norm(params)
+        if max_grad_norm is not None:
+            clip_by_global_norm(grads, max_grad_norm, grad_norm)
+    ts.optimizer.step()
+    return {"grad_norm": grad_norm, "params_norm": params_norm}
+
+
+def minibatch(data: dict, final_obs: Dict[str, torch.Tensor], envs: torch.Tensor):
+    """The trajectories `envs` of the time-major rollout: a gather on the
+    env axis, so the payload is never transposed or stored permuted."""
+    take = lambda x: x.index_select(1, envs)
+    mb = {k: take(v) for k, v in data.items() if k != "obs"}
+    mb["obs"] = {k: take(v) for k, v in data["obs"].items()}
+    return mb, {k: v.index_select(0, envs) for k, v in final_obs.items()}
+
+
+def to_segments(data: dict, final_obs: Dict[str, torch.Tensor], k: int, T: int):
+    """k > 1: split the (k*T, E, ...) rollout into k unroll segments per env
+    and treat them as k*E trajectories of length T. Segment j's bootstrap
+    obs is the obs at the first step of segment j+1; the last segment uses
+    the obs after the rollout."""
+
+    def seg(x):  # (k*T, E, ...) -> (T, k*E, ...)
+        E = x.shape[1]
+        x = x.reshape((k, T) + x.shape[1:]).transpose(0, 1)
+        return x.reshape((T, k * E) + x.shape[3:])
+
+    fin = {
+        key: torch.cat([data["obs"][key][T::T][: k - 1], f[None]], 0).reshape((-1,) + f.shape[1:])
+        for key, f in final_obs.items()
+    }
+    out = {key: seg(v) for key, v in data.items() if key != "obs"}
+    out["obs"] = {key: seg(v) for key, v in data["obs"].items()}
+    return out, fin
+
+
+def sgd_draws(cfg: PPOConfig, action_size: int, generator: torch.Generator) -> SGDDraws:
+    dev = generator.device
+    ntraj = cfg.k_unrolls * cfg.num_envs
+    perms = torch.stack([torch.randperm(ntraj, generator=generator, device=dev)
+                         for _ in range(cfg.num_updates_per_batch)])
+    noise = torch.randn((cfg.num_updates_per_batch, cfg.num_minibatches, cfg.unroll_length,
+                         cfg.batch_size, action_size), generator=generator, device=dev)
+    return SGDDraws(perms=perms, entropy_noise=noise)
+
+
+def training_step(ts: TrainingState, train_env: TrainingEnv, env, env_state: State,
+                  cfg: PPOConfig, generator: Optional[torch.Generator],
+                  unroll: Optional[UnrollDraws] = None, sgd: Optional[SGDDraws] = None,
+                  phase_hook: Optional[Callable[[str], None]] = None):
+    """One PPO training step: rollout of k * unroll_length steps, normalizer
+    update, then num_updates_per_batch epochs of num_minibatches SGD steps.
+    The random numbers come from `generator` unless `unroll` and `sgd` give
+    them. Returns (ts, env_state, metrics); the metrics are 0-d tensors (means
+    over the SGD steps, and the rollout's mean reward). `phase_hook` is
+    called with "rollout" and "update" as each phase ends (a caller that
+    times them synchronizes there)."""
+    k, T = cfg.k_unrolls, cfg.unroll_length
+    if unroll is None:
+        unroll = unroll_draws(env, cfg.num_envs, k * T, generator)
+    env_state, data, final_obs, moments = generate_unroll(
+        train_env, ts.net, ts.normalizer, env_state, unroll, accumulate=cfg.normalize_observations)
+    if cfg.normalize_observations:
+        ts.normalizer = RS.merge_moments(ts.normalizer, float(k * cfg.num_envs * T), *moments)
+    reward_mean = data["reward"].mean()
+    if k > 1:
+        data, final_obs = to_segments(data, final_obs, k, T)
+    if phase_hook is not None:
+        phase_hook("rollout")
+
+    if sgd is None:
+        sgd = sgd_draws(cfg, env.action_size, generator)
+    collected: Dict[str, List[torch.Tensor]] = {}
+    for perm, epoch_noise in zip(sgd.perms, sgd.entropy_noise):
+        for i in range(cfg.num_minibatches):
+            envs = perm[i * cfg.batch_size : (i + 1) * cfg.batch_size]
+            mb, mb_final = minibatch(data, final_obs, envs)
+            ts.optimizer.zero_grad(set_to_none=True)
+            total, metrics = loss_fn(ts.net, ts.normalizer, mb, mb_final, epoch_noise[i], cfg)
+            total.backward()
+            metrics.update(apply_gradients(ts, cfg.max_grad_norm))
+            for name, v in metrics.items():
+                collected.setdefault(name, []).append(v.detach())
+    out = {name: torch.stack(v).mean() for name, v in collected.items()}
+    out["reward_mean"] = reward_mean
+    ts.env_steps += cfg.steps_per_training_step
+    if phase_hook is not None:
+        phase_hook("update")
+    return ts, env_state, out
+
+
+# ------------------------------------------------------------------ train
+def train(environment, num_timesteps: Optional[int] = None, config: Optional[PPOConfig] = None,
+          device="cuda", randomize: bool = True,
+          progress_fn: Callable[[int, dict], None] = lambda *a: None,
+          eval_env=None, policy_params_fn=None, restore_checkpoint_path: Optional[str] = None,
+          mesh=None, **overrides):
+    """Train `environment` for `num_timesteps` env steps (rounded up to whole
+    training steps). `overrides` replace fields of `config`. `progress_fn`
+    gets (env steps, metrics) after every training step. Returns
+    ((normalizer, net), metrics) with the last step's `training/...`
+    metrics and `training/sps`."""
+    cfg = dataclasses.replace(config or PPOConfig(), **overrides)
+    num_timesteps = cfg.num_timesteps if num_timesteps is None else num_timesteps
+    unported = {
+        "periodic evaluation (num_evals > 1 or eval_env)": cfg.num_evals > 1 or eval_env is not None,
+        "policy_params_fn (eval/hook pipelining)": policy_params_fn is not None,
+        "restore_checkpoint_path": restore_checkpoint_path is not None,
+        "bf16_matmuls": cfg.bf16_matmuls,
+        "mesh": mesh is not None,
+        "action_repeat > 1": cfg.action_repeat != 1,
+    }
+    asked = [name for name, on in unported.items() if on]
+    if asked:
+        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+    cfg.k_unrolls  # raises on a broken rollout contract
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    spec = environment.model.spec if environment.model is not None else None
+    dr = DRDraws.sample(gen, cfg.num_envs, spec) if randomize and spec is not None else None
+    train_env = TrainingEnv(environment, cfg.episode_length, dr_draws=dr)
+    env_state = train_env.reset(environment.reset_draws(gen, cfg.num_envs))
+    ts = init_training_state(env_state.obs, environment.action_size, cfg, gen, device=dev)
+
+    all_metrics: Dict[str, float] = {}
+    while ts.env_steps < num_timesteps:
+        t0 = time.monotonic()
+        ts, env_state, metrics = training_step(ts, train_env, environment, env_state, cfg, gen)
+        all_metrics = {f"training/{k}": float(v) for k, v in metrics.items()}  # synchronizes
+        all_metrics["training/sps"] = cfg.steps_per_training_step / (time.monotonic() - t0)
+        progress_fn(ts.env_steps, all_metrics)
+    return (ts.normalizer, ts.net), all_metrics

@@ -1,11 +1,13 @@
-"""Running observation normalization state: init and normalize.
-Counterpart of `open_duck_playground_tpu/train/running_stats.py`; the
-update (merge_moments) comes with the PPO update."""
+"""Running observation normalization (Welford over batches). Counterpart
+of `open_duck_playground_tpu/train/running_stats.py`: `update` on a whole
+batch, or the same result from moments about the old mean that the rollout
+accumulates step by step (`zero_moments`, `accumulate_moments`,
+`merge_moments`)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -30,3 +32,56 @@ def init(obs_sizes: Dict[str, int], device="cuda", dtype=torch.float32) -> Runni
 
 def normalize(stats: RunningStats, obs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: (x - stats.mean[k]) / stats.std[k] for k, x in obs.items()}
+
+
+Moments = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
+
+
+def _merged(stats: RunningStats, new_count, mean, summed_var) -> RunningStats:
+    summed_var = {k: torch.clamp(v, min=0.0) for k, v in summed_var.items()}
+    std = {k: torch.sqrt(v / new_count + 1e-6) for k, v in summed_var.items()}
+    return RunningStats(count=new_count, mean=mean, summed_var=summed_var, std=std)
+
+
+def update(stats: RunningStats, obs: Dict[str, torch.Tensor]) -> RunningStats:
+    """Fold a batch in; obs leaves have any leading batch dims."""
+    any_leaf = next(iter(obs.values()))
+    new_count = stats.count + any_leaf.numel() // any_leaf.shape[-1]
+    mean, summed_var = {}, {}
+    for k, x in obs.items():
+        x2 = x.reshape(-1, x.shape[-1])
+        diff = x2 - stats.mean[k]
+        mean[k] = stats.mean[k] + diff.sum(0) / new_count
+        summed_var[k] = stats.summed_var[k] + (diff * (x2 - mean[k])).sum(0)
+    return _merged(stats, new_count, mean, summed_var)
+
+
+def zero_moments(stats: RunningStats) -> Moments:
+    """(t1, t2) accumulators for `merge_moments`."""
+    return ({k: torch.zeros_like(v) for k, v in stats.mean.items()},
+            {k: torch.zeros_like(v) for k, v in stats.mean.items()})
+
+
+def accumulate_moments(stats: RunningStats, moments: Moments, obs: Dict[str, torch.Tensor]) -> Moments:
+    """Add one batch of obs (leading dims flattened) into (t1, t2)."""
+    t1, t2 = moments
+    nt1, nt2 = {}, {}
+    for k, x in obs.items():
+        y = x.reshape(-1, x.shape[-1]) - stats.mean[k]
+        nt1[k] = t1[k] + y.sum(0)
+        nt2[k] = t2[k] + (y * y).sum(0)
+    return nt1, nt2
+
+
+def merge_moments(stats: RunningStats, batch_count, t1: Dict[str, torch.Tensor],
+                  t2: Dict[str, torch.Tensor]) -> RunningStats:
+    """`update` from moments about the old mean, t1 = sum(x - mean) and
+    t2 = sum((x - mean)^2): with d = t1 / new_count the new mean is
+    mean + d and the summed variance grows by t2 - d * t1."""
+    new_count = stats.count + batch_count
+    mean, summed_var = {}, {}
+    for k in t1:
+        delta = t1[k] / new_count
+        mean[k] = stats.mean[k] + delta
+        summed_var[k] = stats.summed_var[k] + t2[k] - delta * t1[k]
+    return _merged(stats, new_count, mean, summed_var)

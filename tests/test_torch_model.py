@@ -115,7 +115,7 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'ml_collections', 'mujoco', 'open_duck_playground_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'ml_collections', 'mujoco', 'open_duck_playground_tpu'))\n"
         "assert not bad, bad\n"
         "print('ISOLATED', len(sys.argv))\n"
     )

@@ -24,7 +24,7 @@ from open_duck_playground_tpu.train import networks as JN, running_stats as JRS
 from open_duck_playground_torch.envs.joystick import Joystick
 from open_duck_playground_torch.envs.randomize import DRDraws
 from open_duck_playground_torch.envs.wrappers import TrainingEnv
-from open_duck_playground_torch.interop import normalizer_from_jax, policy_from_jax, state_from_jax
+from open_duck_playground_torch.interop import normalizer_from_jax, networks_from_jax, state_from_jax
 from open_duck_playground_torch.train import networks as TN, running_stats as TRS
 
 from test_torch_envs import (
@@ -70,7 +70,7 @@ def rollout():
     net = JN.PPONetworks(obs_sizes, jenv.action_size, HIDDEN, (256, 256, 256, 256))
     params = net.init(jax.random.PRNGKey(2))
     normalizer = JRS.init(obs_sizes)
-    tnet = policy_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    tnet = networks_from_jax(jax.tree.map(np.asarray, params), device="cpu")
     tnorm = normalizer_from_jax(jax.tree.map(np.asarray, normalizer), device="cpu")
     return dict(jenv=jenv, jwrapped=jwrapped, twrapped=twrapped, jstate=jstate,
                 tstate=tstate, net=net, params=params, normalizer=normalizer,
