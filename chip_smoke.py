@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each (a phase that has two kernels prints two):
+Phases, one JSON line each (a phase that has several kernels prints several):
   1. device: the card's name and power limit;
   2. build: nvcc builds, side by side, the physics megakernel for the plane
-     scene and for the heightfield scene (-DMK_HFIELD=1) and the issue-rate
-     probe, from csrc/ into build/kernels/;
+     scene, for the heightfield scene (-DMK_HFIELD=1) and for the plane
+     scene on the degenerate (dense) partition, and the issue-rate probe,
+     from csrc/ into build/kernels/; each megakernel line carries lanes per
+     env, shared bytes per block, local bytes per thread and resident warps
+     per SM;
   3. kernel_vs_plain, kernel_timing: each megakernel build against its plain
      version (`forward.step_reference`) at 8192 domain-randomized envs,
      substep by substep along the kernel's trajectory and over 10 substeps
-     in one launch, with times and the card's least time for the same work;
-     the heightfield run spreads the envs over +-3 m of rough terrain and
-     must see active contacts on tilted triangles;
+     in one launch, with times (also at 4x the envs) and the card's least
+     time for the same work; the heightfield run spreads the envs over
+     +-3 m of rough terrain and must see active contacts on tilted
+     triangles; the degenerate partition runs the same check at 1024 envs;
   4. rollout: the training rollout (TrainingEnv + Joystick on
      flat_terrain_backlash, the 128x4 policy in the loop), 8192 envs x 5
      control steps, every physics step through the plane kernel;
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 N_ENVS = 8192
+N_ENVS_DENSE = 1024  # the degenerate partition's check: no training path runs it
 N_SUBSTEPS = 10
 # Per-env gates of the kernel against its plain version, (p90, max), the
 # interpret-mode test's tolerances (test_megakernel_interpret.py). The
@@ -133,14 +138,26 @@ def active_rows(m, d):
     return contacts, limits
 
 
-def megakernel_work(m, n_envs: int, n_substeps: int, active_contacts: float, active_limits: float):
-    """(bytes, f32 operations) the kernel's function needs for one launch.
+def megakernel_work(m, n_envs: int, n_substeps: int, active_contacts: float, active_limits: float,
+                    dense: bool = False):
+    """(bytes, f32 operations, f32 operations of the dense form) the
+    kernel's function needs for one launch.
 
     Bytes: each per-env input read once and each output written once, and
     on a heightfield the height table once per launch (all envs share it).
     Operations: counted from the loops of csrc/megakernel.cuh, one per add,
     multiply, divide, sqrt, sin or cos, with the data-dependent rows (active
-    contacts and joint limits) at this run's average."""
+    contacts and joint limits) at this run's average. The bound is the least
+    time for the function, so each stage is counted in the cheapest of its
+    known forms, whether or not the source takes it: the block-arrow
+    factorization, products and solves on the model's partition (`dense`:
+    on the degenerate one), contact rows as three base rows on the foot's
+    support, and the contact curvature as the lesser of four facet rank-1
+    updates and the folded 3 x 3 form with W J formed once per support
+    column (the source recomputes W J per entry, 17 operations in place of
+    6). The third number is the same function
+    in the dense form (packed 30 x 30 Cholesky twice, four dense facet rows
+    per contact), which earlier tables of PERF.md were counted in."""
     from open_duck_playground_torch.physics import megakernel as MK
     from open_duck_playground_torch.physics import structure
 
@@ -168,9 +185,6 @@ def megakernel_work(m, n_envs: int, n_substeps: int, active_contacts: float, act
     ops += 12 * int(anc.sum()) + 12 * int(pred.sum()) + nv * (27 + 6)  # cvel, cdof_dot
     ops += 12 * int(anc.sum()) + nb * (2 * 33 + 27 + 6) + (nb - 1) * 6 + nv * 14  # RNE
     ops += nu * 8  # servos
-    chol = sum((nv - k) + (nv - k - 1) * (nv - k) for k in range(nv)) + nv
-    solve = 2 * nv * nv
-    ops += chol + solve  # qacc_smooth
     nfoot, nvert, frame = len(s.collide_geom_ids), d["NVERT"], 27  # frame: 2 cross, dot, sqrt, 3 div
     if s.floor_is_hfield:
         # hfield_height_normal: cell coordinates 8, height 8, slopes 6, unit normal 8, offsets 2
@@ -178,23 +192,53 @@ def megakernel_work(m, n_envs: int, n_substeps: int, active_contacts: float, act
         ops += rot + 3 + nfoot * (rot + 3 + qmul) + nfoot * nvert * (rot + 3 + height_normal + 3)
         ops += s.ncon_max * (height_normal + 6 + frame)  # the chosen vertices: normal again, point, frame
     else:
-        ops += (nfoot + 1) * (rot + 3 + qmul) + nfoot * nvert * (rot + 8)
+        ops += (nfoot + 1) * (rot + 3 + qmul) + nfoot * nvert * (rot + 8) + frame
     nlim_act, ncon_act = active_limits, active_contacts
     foot_dofs = float(np.mean([anc[s.geom_bodyid[g]].sum() for g in s.collide_geom_ids]))
-    ops += d["NFRIC"] * 3 + d["NLIM"] * 30 + s.ncon_max * 40
-    ops += ncon_act * (4 * foot_dofs * (9 + 3 + 5 + 2) + 24)  # contact Jacobian rows
+    ops += d["NFRIC"] * 3 + d["NLIM"] * 30 + s.ncon_max * 40  # row constants, impedances
+    ops += 2 * nv + 3 * nv + 2 * 7 + 30 + 10  # integrate
+    last = s.nsite * (rot + qmul + qmat) + len(s.sensors) * 30 + 12 * int(anc[s.site_bodyid[0]].sum())
     rows_active = d["NFRIC"] + nlim_act + 4 * ncon_act
+
+    # ---- the solver in the dense form: packed Cholesky, dense facet rows
+    chol = sum((nv - k) + (nv - k - 1) * (nv - k) for k in range(nv)) + nv
+    solve = 2 * nv * nv
     dense_rows = 4 * ncon_act
     jx = d["NFRIC"] + nlim_act + dense_rows * 2 * nv  # one J x over the active rows
-    ops += 2 * (2 * nv * nv + 3 * nv + jx + rows_active * 8)  # two start costs
-    ops += 2 * nv * nv + 2 * nv + jx + rows_active * 6  # gradient
-    ops += dense_rows * (foot_dofs * (foot_dofs + 1))  # Hessian rank-1 updates
-    ops += chol + solve + jx + 2 * nv * nv + 4 * nv  # Newton direction, line data
-    ops += s.ls_iterations * (rows_active * 10 + 6)  # linesearch
-    ops += 2 * nv + 3 * nv + 2 * 7 + 30 + 10  # integrate
-    ops *= n_substeps
-    ops += s.nsite * (rot + qmul + qmat) + len(s.sensors) * 30 + 12 * int(anc[s.site_bodyid[0]].sum())
-    return nbytes, n_envs * ops
+    dense_ops = chol + solve  # qacc_smooth
+    dense_ops += ncon_act * (4 * foot_dofs * (9 + 3 + 5 + 2) + 24)  # contact Jacobian rows
+    dense_ops += 2 * (2 * nv * nv + 3 * nv + jx + rows_active * 8)  # two start costs
+    dense_ops += 2 * nv * nv + 2 * nv + jx + rows_active * 6  # gradient
+    dense_ops += dense_rows * (foot_dofs * (foot_dofs + 1))  # Hessian rank-1 updates
+    dense_ops += chol + solve + jx + 2 * nv * nv + 4 * nv  # Newton direction, line data
+    dense_ops += s.ls_iterations * (rows_active * 10 + 6)  # linesearch
+
+    # ---- the solver in the block-arrow form of the source
+    part = MK.partition(s, dense)
+    r, lens = part.root, [e - a for a, e in part.chains]
+    tri = lambda n: n * (n + 1) // 2
+    fac = lambda n: sum(2 + (n - k - 1) + (n - k - 1) * (n - k) for k in range(n))  # sqrt, 1/x, scale, updates
+    chol = sum(fac(n) + sum(r + 2 * r * (n - k - 1) for k in range(n)) for n in lens)  # chains, panels
+    chol += 2 * tri(r) * sum(lens) + fac(r)  # Schur complement, root
+    tri_solve = lambda n: n * (n - 1) + n  # one triangular solve
+    solve = sum(2 * tri_solve(n) + 4 * r * n for n in lens) + 2 * tri_solve(r)
+    nba = d["NBA"] if not dense else tri(nv)
+    symv = 2 * (2 * nba - nv)
+    base = 6 * foot_dofs  # three base rows of one contact times a vector
+    jx = d["NFRIC"] + nlim_act + ncon_act * (base + 8)
+    ba_ops = chol + solve  # qacc_smooth
+    ba_ops += ncon_act * (foot_dofs * 27 + base + 8)  # base rows on the support, facet velocities
+    ba_ops += nv + symv + 2 * nv + 2 * jx + 2 * rows_active * 8  # two start costs (no quadratic term at qacc_smooth)
+    ba_ops += nv + symv + jx + rows_active * 6 + ncon_act * 16  # residuals, g and h, facets folded
+    ba_ops += 2 * (d["NFRIC"] + nlim_act) + ncon_act * base  # gradient and Hessian diagonal, gathered per dof
+    # contact curvature on the support triangle: facet rank-1 updates, or W J
+    # per column (W is 3 x 3 with t1t2 = 0: 11) and 6 per entry
+    ba_ops += ncon_act * min(4 * foot_dofs * (foot_dofs + 1), 11 * foot_dofs + 6 * tri(int(round(foot_dofs))))
+    ba_ops += chol + solve + nv + jx + symv + 4 * nv  # Newton direction, line data
+    ba_ops += s.ls_iterations * (rows_active * 10 + 6)  # linesearch
+
+    total = lambda solver: n_envs * ((ops + solver) * n_substeps + last)
+    return nbytes, total(ba_ops), total(dense_ops)
 
 
 def load_modules():
@@ -213,20 +257,26 @@ def load_modules():
 
 
 def build_phase(P, models):
-    """nvcc on every kernel source at once: one process per library."""
+    """nvcc on every kernel source at once: one process per library.
+    `models` maps a kernel's name to (model, dense partition?)."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(models) + 1) as pool:
-        futures = {name: pool.submit(P.MK.kernel, m.spec) for name, m in models.items()}
+        futures = {name: pool.submit(P.MK.kernel, m.spec, dense) for name, (m, dense) in models.items()}
         probe = pool.submit(P.IB.library)
         kernels = {name: f.result() for name, f in futures.items()}
         probe = probe.result()
     wall = time.perf_counter() - t0
     for name, k in kernels.items():
         info = k.info()
-        resident = info["blocks_per_sm"] * info["block_size"]
         emit({"phase": "build", "kernel": name, "nvcc_seconds": round(k.build_seconds, 3),
-              "flags": P.MK.dim_flags(k.dims), **info, "resident_threads_per_sm": resident,
-              "occupancy": resident / 2048, "ptxas": k.ptxas})
+              "flags": P.MK.dim_flags(k.dims), **info,
+              "occupancy": info["resident_warps_per_sm"] / 64, "ptxas": k.ptxas})
+        # the degenerate partition keeps its one long chain's scratch (3 x nv
+        # floats) in thread-local arrays; the block-arrow builds keep none
+        local_limit = 1024 if k.dense else 256
+        if (info["lanes_per_env"] < 2 or info["local_bytes_per_thread"] > local_limit
+                or info["resident_warps_per_sm"] < 8):
+            raise SystemExit(f"{name}: the env's working set is not in shared memory across lanes: {info}")
     regs = [int(l.split("Used ")[1].split(" registers")[0]) for l in probe.ptxas_lines() if "Used " in l]
     emit({"phase": "build", "kernel": "issue_probe", "nvcc_seconds": round(probe.build_seconds, 3),
           "instantiations": len(regs), "registers_per_thread_max": max(regs),
@@ -237,20 +287,20 @@ def build_phase(P, models):
     return kernels
 
 
-def start_state(P, model, gen, hfield: bool):
-    """8192 domain-randomized envs near the home keyframe (qpos 0.01, qvel
-    0.1 normal). On the heightfield the base is spread uniformly over +-3 m
-    in x and y and lifted as the env's spawn is (hfield_size[2] + 0.002)."""
+def start_state(P, model, gen, hfield: bool, n_envs: int = N_ENVS):
+    """Domain-randomized envs near the home keyframe (qpos 0.01, qvel 0.1
+    normal). On the heightfield the base is spread uniformly over +-3 m in x
+    and y and lifted as the env's spawn is (hfield_size[2] + 0.002)."""
     dev = model.device
-    m = P.R.domain_randomize(model, P.R.DRDraws.sample(gen, N_ENVS, model.spec))
+    m = P.R.domain_randomize(model, P.R.DRDraws.sample(gen, n_envs, model.spec))
     rng = np.random.default_rng(0)
     kq, kc = model.key_qpos.cpu().numpy(), model.key_ctrl.cpu().numpy()
-    qpos = np.tile(kq, (N_ENVS, 1)) + 0.01 * rng.standard_normal((N_ENVS, kq.size))
-    qvel = 0.1 * rng.standard_normal((N_ENVS, model.spec.nv))
+    qpos = np.tile(kq, (n_envs, 1)) + 0.01 * rng.standard_normal((n_envs, kq.size))
+    qvel = 0.1 * rng.standard_normal((n_envs, model.spec.nv))
     if hfield:
-        qpos[:, :2] += rng.uniform(-3.0, 3.0, (N_ENVS, 2))
+        qpos[:, :2] += rng.uniform(-3.0, 3.0, (n_envs, 2))
         qpos[:, 2] += float(model.hfield_size[2]) + 0.002
-    ctrl = np.tile(kc, (N_ENVS, 1))
+    ctrl = np.tile(kc, (n_envs, 1))
     qpos, qvel, ctrl = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (qpos, qvel, ctrl))
     return m, P.F.init(m, qpos, qvel, ctrl), ctrl
 
@@ -266,15 +316,21 @@ def terrain_contacts(P, m, d):
     return int(active.any(1).sum()), int(tilted.sum()), int(active.sum())
 
 
-def kernel_phase(P, name, model, gen, replaces, timing_reps):
+def kernel_phase(P, name, model, gen, replaces, timing_reps, dense=False, n_envs=N_ENVS):
     """kernel_vs_plain and kernel_timing of one megakernel build; returns
-    its row of the kernel table (launches filled in later)."""
+    its row of the kernel table. The first launch, with the counts at 0
+    just before it, is the degenerate partition's whole path (`launches` of
+    its row); the other builds' rows get their launches from the training
+    paths later."""
     MK, F = P.MK, P.F
     dev = model.device
     hfield = model.spec.floor_is_hfield
-    m, d0, ctrl = start_state(P, model, gen, hfield)
-    got = MK.megakernel_step(m, d0, ctrl, N_SUBSTEPS)
+    m, d0, ctrl = start_state(P, model, gen, hfield, n_envs)
+    step = lambda mm, dd, cc, n: MK.megakernel_step(mm, dd, cc, n, dense)
+    MK.reset_launches()
+    got = step(m, d0, ctrl, N_SUBSTEPS)
     torch.cuda.synchronize()
+    path_launches = MK.launches_dense if dense else None
     want = F.step_reference(m, d0, ctrl, N_SUBSTEPS)
 
     check = {f: {"per_substep_max": []} for f in GATES}
@@ -286,9 +342,9 @@ def kernel_phase(P, name, model, gen, replaces, timing_reps):
         if hfield:
             a, b, c = terrain_contacts(P, m, d)
             touching, tilted, contacts = max(touching, a), tilted + b, contacts + c
-        k1 = MK.megakernel_step(m, d, ctrl, 1)
+        k1 = step(m, d, ctrl, 1)
         p1 = F.step_reference(m, d, ctrl, 1)
-        over = np.zeros(N_ENVS, bool)
+        over = np.zeros(n_envs, bool)
         for f, (_, max_gate) in GATES.items():
             e = per_env_err(getattr(k1, f), getattr(p1, f))
             check[f]["per_substep_max"].append(float(e.max()))
@@ -318,7 +374,7 @@ def kernel_phase(P, name, model, gen, replaces, timing_reps):
                    "active_contacts_with_tilted_normal": tilted}
         if touching == 0 or tilted == 0:
             failures.append("no active contact on a tilted triangle")
-    emit({"phase": "kernel_vs_plain", "kernel": name, "envs": N_ENVS, "substeps": N_SUBSTEPS,
+    emit({"phase": "kernel_vs_plain", "kernel": name, "envs": n_envs, "substeps": N_SUBSTEPS,
           "gates": {"p90_max": GATES, "derived_p90": DERIVED_P90,
                     "edge_copies": EDGE_COPIES, "edge_scale": EDGE_SCALE},
           "errors": check, "edges": edges, **terrain, "finite": finite,
@@ -326,26 +382,24 @@ def kernel_phase(P, name, model, gen, replaces, timing_reps):
     if failures or not finite:
         raise SystemExit(f"{name} disagrees with its plain version: {failures}")
 
-    ms = cuda_ms(lambda: MK.megakernel_step(m, d0, ctrl, N_SUBSTEPS), timing_reps)
+    ms = cuda_ms(lambda: step(m, d0, ctrl, N_SUBSTEPS), timing_reps)
     plain_ms = cuda_ms(lambda: F.step_reference(m, d0, ctrl, N_SUBSTEPS), 2)
     active_contacts, active_limits = active_rows(m, got)
-    nbytes, nops = megakernel_work(m, N_ENVS, N_SUBSTEPS, active_contacts, active_limits)
+    nbytes, nops, dense_ops = megakernel_work(m, n_envs, N_SUBSTEPS, active_contacts, active_limits, dense)
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / F32_FLOPS
     bound_ms = max(bytes_ms, ops_ms)
-    timing = {"phase": "kernel_timing", "kernel": name, "ms": ms, "plain_ms": plain_ms,
-              "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound_ms,
-              "roofline_share": bound_ms / ms, "us_per_1k_envs": 1e3 * ms / (N_ENVS / 1e3)}
-    if not hfield:
-        # the same launch at 4x the envs: one thread per env leaves 8192 envs
-        # at ~62 threads per SM, so time per env shows how far latency, not
-        # work, sets the kernel's time
-        m4 = P.R.domain_randomize(model, P.R.DRDraws.sample(gen, 4 * N_ENVS, model.spec))
-        d4 = d0.map(lambda x: x.repeat((4,) + (1,) * (x.dim() - 1)))
-        ctrl4 = ctrl.repeat(4, 1)
-        ms4 = cuda_ms(lambda: MK.megakernel_step(m4, d4, ctrl4, N_SUBSTEPS), 3)
-        timing.update({f"ms_at_{4 * N_ENVS}_envs": ms4,
-                       f"us_per_1k_envs_at_{4 * N_ENVS}": 1e3 * ms4 / (4 * N_ENVS / 1e3)})
-    emit(timing)
+    # the same launch at 4x the envs: where the card is full, the time per
+    # env stays; where latency, not work, sets the time, it falls
+    m4 = P.R.domain_randomize(model, P.R.DRDraws.sample(gen, 4 * n_envs, model.spec))
+    d4 = d0.map(lambda x: x.repeat((4,) + (1,) * (x.dim() - 1)))
+    ctrl4 = ctrl.repeat(4, 1)
+    ms4 = cuda_ms(lambda: step(m4, d4, ctrl4, N_SUBSTEPS), 3)
+    emit({"phase": "kernel_timing", "kernel": name, "envs": n_envs, "ms": ms, "plain_ms": plain_ms,
+          "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound_ms,
+          "roofline_share": bound_ms / ms, "us_per_1k_envs": 1e3 * ms / (n_envs / 1e3),
+          f"ms_at_{4 * n_envs}_envs": ms4,
+          f"us_per_1k_envs_at_{4 * n_envs}": 1e3 * ms4 / (4 * n_envs / 1e3),
+          "f32_ops": nops, "dense_f32_ops": dense_ops, "dense_ops_ms": 1e3 * dense_ops / F32_FLOPS})
     # one substep of kernel and plain version from the same state, edges included
     max_abs_err = max(max(check[f]["per_substep_max"]) for f in GATES)
     return {
@@ -353,9 +407,10 @@ def kernel_phase(P, name, model, gen, replaces, timing_reps):
         "route": "cuda",
         "source": "open_duck_playground_torch/csrc/megakernel.cu",
         "replaces": replaces,
-        "launches": None,
+        "launches": path_launches,
         "max_abs_err": max_abs_err,
         "tolerance": {f: g[1] for f, g in GATES.items()},
+        "envs": n_envs,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -367,6 +422,7 @@ def kernel_phase(P, name, model, gen, replaces, timing_reps):
         "qvel_p90": check["qvel"]["p90"],
         "bytes": nbytes,
         "f32_ops": nops,
+        "dense_f32_ops": dense_ops,
         "active_contacts_per_env": active_contacts,
         "active_limits_per_env": active_limits,
     }
@@ -563,17 +619,20 @@ def main() -> int:
     flat = P.loader.load_model(device=dev, dtype=torch.float32, timestep=0.002)
     rough = P.loader.load_model("scene_rough_terrain_backlash", device=dev, dtype=torch.float32,
                                 timestep=0.002)
-    build_phase(P, {"megakernel_step": flat, "megakernel_step_hfield": rough})
+    build_phase(P, {"megakernel_step": (flat, False), "megakernel_step_hfield": (rough, False),
+                    "megakernel_step_dense": (flat, True)})
 
     gen = torch.Generator(device=dev).manual_seed(0)
     row_flat = kernel_phase(P, "megakernel_step", flat, gen, P.MK.TPU_KERNEL, timing_reps=10)
     row_hfield = kernel_phase(P, "megakernel_step_hfield", rough, gen, P.MK.TPU_KERNEL_HFIELD,
                               timing_reps=10)
+    row_dense = kernel_phase(P, "megakernel_step_dense", flat, gen, P.MK.TPU_KERNEL_DENSE,
+                             timing_reps=10, dense=True, n_envs=N_ENVS_DENSE)
     row_flat["launches"] = rollout_phase(P, gen, smi, steps=5)
     row_probe = probe_phase(P, gen, smi)
     row_hfield["launches"] = ppo_phase(P, gen, smi)
 
-    emit({"kernels": [row_flat, row_hfield, row_probe], "seconds_total": time.perf_counter() - t_start})
+    emit({"kernels": [row_flat, row_hfield, row_dense, row_probe], "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

@@ -2,21 +2,35 @@
 
 Replaces the Pallas TPU kernel
 `open_duck_playground_tpu/physics/megakernel.py:megakernel_step_batched`
-(`pl.pallas_call` at :2178): all `n_substeps` substeps of one control step,
-one env per CUDA thread, state in thread-local storage between substeps. A
-plane floor and a heightfield floor (the TPU kernel's `IS_HFIELD` branch)
-are two builds of the same source, told apart by `-DMK_HFIELD`; the
-heightfield build reads the height table straight from device memory.
+(`pl.pallas_call` at :2178): all `n_substeps` substeps of one control step
+in one launch. A plane floor and a heightfield floor (the TPU kernel's
+`IS_HFIELD` branch) are two builds of the same source, told apart by
+`-DMK_HFIELD`; the heightfield build gathers from the height table in
+device memory.
 
 What bounds it on an H100: not HBM (about 2.3 KB in and out per env and
-control step) and not the f32 operations at peak, but latency: each thread
-runs a long dependent chain through ~23 KB of thread-local storage (dense
-30x30 mass matrix and factor, 32x30 contact Jacobian), and one thread per
-env leaves 8192 envs at ~62 threads per SM to hide it. The design accepts
-that for a first kernel that is simple and right: dense forms for every
-stage, blocks of 64 threads so 8192 envs spread over 128 of the 132 SMs.
-More threads per env and the block-arrow forms of
-`structure.dof_chain_blocks` are the tools of a later pass.
+control step) and not the f32 operations at peak, but the latency of many
+short dependent stages. The kernel gives each env a group of lanes (a warp
+or an aligned part of one, a constant of the source) that keep the env's
+working set in shared memory across the substeps and meet at warp-level
+barriers only. This wrapper sizes nothing at run time: the working set is
+one struct whose size the library reports (`info()`), a block holds eight
+envs and one copy of the structure tables, and shared memory decides how
+many blocks an SM holds.
+
+The dofs are partitioned block-arrow (`partition`): the root free joint's
+block and the serial chains that couple only through it, from
+`structure.dof_chain_blocks`. The mass matrix and the Newton Hessian keep
+only the root triangle, the chains' triangles and the chain-to-root panels,
+Cholesky runs chain by chain with the root's Schur complement last (no
+fill-in: `block_arrow_solve` is that stage's plain version), and a contact's
+Jacobian stays on the root and the foot's own chain. A model without that
+shape, or whose foot hangs on several chains, gets the degenerate partition
+(no root, one chain of all dofs): the same source is then dense. The
+partition reaches the source as `-D` sizes and small tables in `MkModel`.
+
+No tensor cores: the products are 10x10 and 6x6 blocks per env and the
+gates need true f32.
 
 The wrapper takes CUDA tensors only; `forward.step` sends CPU tensors to
 the plain version, `forward.step_reference`. The kernel is built with `nvcc` at first use into
@@ -26,6 +40,7 @@ the plain version, `forward.step_reference`. The kernel is built with `nvcc` at 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -34,6 +49,7 @@ import torch
 from open_duck_playground_torch import cuda_build
 from open_duck_playground_torch.physics import collision as C
 from open_duck_playground_torch.physics import constraint as CN
+from open_duck_playground_torch.physics import linalg
 from open_duck_playground_torch.physics import structure
 from open_duck_playground_torch.physics.types import (
     FREE, RANDOMIZED_FIELDS, Data, Model, ModelSpec,
@@ -42,6 +58,7 @@ from open_duck_playground_torch.physics.types import (
 CSRC = cuda_build.CSRC
 TPU_KERNEL = "open_duck_playground_tpu/physics/megakernel.py:2178"
 TPU_KERNEL_HFIELD = "open_duck_playground_tpu/physics/megakernel.py:1098"
+TPU_KERNEL_DENSE = "open_duck_playground_tpu/physics/megakernel.py:858"
 
 SENSOR_KINDS = (
     "gyro",
@@ -56,20 +73,87 @@ SENSOR_KINDS = (
 )
 
 # Kernel launches since the last reset; one per `megakernel_step` on a card.
-# `launches_hfield` counts those of them that ran the heightfield build.
+# `launches_hfield` counts those of them that ran the heightfield build,
+# `launches_dense` those on the degenerate partition.
 launches = 0
 launches_hfield = 0
+launches_dense = 0
 
 
 def reset_launches() -> None:
-    global launches, launches_hfield
+    global launches, launches_hfield, launches_dense
     launches = 0
     launches_hfield = 0
+    launches_dense = 0
 
 
 # ------------------------------------------------------------ model tables
-def kernel_dims(spec: ModelSpec) -> Dict[str, int]:
+@dataclass(frozen=True)
+class Partition:
+    """Block-arrow partition of the dofs: the root block `[0, root)`, the
+    chains as half-open dof ranges, and the chain each foot hangs on."""
+
+    root: int
+    chains: Tuple[Tuple[int, int], ...]
+    foot_chain: Tuple[int, ...]
+
+    @property
+    def max_chain(self) -> int:
+        return max(e - a for a, e in self.chains)
+
+    def dof_chain(self, nv: int) -> List[int]:
+        out = [-1] * nv
+        for c, (a, e) in enumerate(self.chains):
+            out[a:e] = [c] * (e - a)
+        return out
+
+    def row_offsets(self, nv: int) -> Tuple[List[int], List[int], List[Tuple[int, int]]]:
+        """(rowoff, shift, entries) of the stored lower entries, row by row:
+        entry (i, j) sits at `rowoff[i] + j - (shift[i] if j >= root else 0)`.
+        A root row keeps columns 0..i, a chain row the root columns and its
+        chain's columns up to i."""
+        chain = self.dof_chain(nv)
+        rowoff, shift, entries = [], [], []
+        for i in range(nv):
+            rowoff.append(len(entries))
+            if i < self.root:
+                shift.append(0)
+                entries += [(i, j) for j in range(i + 1)]
+            else:
+                a = self.chains[chain[i]][0]
+                shift.append(a - self.root)
+                entries += [(i, j) for j in range(self.root)] + [(i, j) for j in range(a, i + 1)]
+        return rowoff, shift, entries
+
+
+def partition(spec: ModelSpec, dense: bool = False) -> Partition:
+    """The model's block-arrow partition, or the degenerate one (no root,
+    one chain of all dofs) when it has none, when a foot hangs on no or on
+    several chains, or when `dense` asks for it (tests and the smoke run
+    check the degenerate form on the duck)."""
+    feet = [spec.geom_bodyid[g] for g in spec.collide_geom_ids]
+    degenerate = Partition(0, ((0, spec.nv),), (0,) * len(feet))
+    blocks = None if dense else structure.dof_chain_blocks(spec)
+    if blocks is None:
+        return degenerate
+    (_, root), chains = blocks
+    foot_chain = []
+    for b in feet:
+        bodies = set()
+        while b != 0:
+            bodies.add(b)
+            b = spec.body_parentid[b]
+        owners = {c for c, (a, e) in enumerate(chains)
+                  if any(spec.dof_bodyid[d] in bodies for d in range(a, e))}
+        if len(owners) != 1:
+            return degenerate
+        foot_chain.append(owners.pop())
+    return Partition(root, tuple(chains), tuple(foot_chain))
+
+
+def kernel_dims(spec: ModelSpec, dense: bool = False) -> Dict[str, int]:
     """The -D constants of the kernel source, from the model's spec."""
+    part = partition(spec, dense)
     return dict(
         NQ=spec.nq,
         NV=spec.nv,
@@ -85,6 +169,11 @@ def kernel_dims(spec: ModelSpec) -> Dict[str, int]:
         NFRIC=len(spec.friction_dofs),
         NLIM=len(structure.limited_hinges(spec)),
         HFIELD=int(spec.floor_is_hfield),
+        NLEVEL=len(structure.tree_levels(spec)),
+        NROOT=part.root,
+        NCHAIN=len(part.chains),
+        MAXCHAIN=part.max_chain,
+        NBA=len(part.row_offsets(spec.nv)[2]),
     )
 
 
@@ -94,6 +183,7 @@ def _struct_fields(d: Dict[str, int]) -> List[Tuple[str, str, Tuple[int, ...]]]:
         d["NBODY"], d["NJNT"], d["NV"], d["NU"], d["NSITE"], d["NSENSOR"],
         d["NFOOT"], d["NLIM"], d["NFRIC"],
     )
+    nsup = d["NROOT"] + d["MAXCHAIN"]
     hfield = [
         ("hf_nrow", "i", ()),
         ("hf_ncol", "i", ()),
@@ -108,6 +198,9 @@ def _struct_fields(d: Dict[str, int]) -> List[Tuple[str, str, Tuple[int, ...]]]:
         ("body_jntnum", "i", (B,)),
         ("body_intree", "f", (B,)),
         ("body_dofs", "u", (B,)),
+        ("body_sub", "u", (B,)),
+        ("level_start", "i", (d["NLEVEL"] + 1,)),
+        ("level_body", "i", (B - 1,)),
         ("body_pos", "f", (B, 3)),
         ("body_quat", "f", (B, 4)),
         ("body_iquat", "f", (B, 4)),
@@ -122,6 +215,16 @@ def _struct_fields(d: Dict[str, int]) -> List[Tuple[str, str, Tuple[int, ...]]]:
         ("dof_pred", "u", (V,)),
         ("dof_ftm", "f", (V,)),
         ("dof_damping", "f", (V,)),
+        ("dof_fric", "i", (V,)),
+        ("dof_lim", "i", (V,)),
+        ("chain_start", "i", (d["NCHAIN"],)),
+        ("chain_end", "i", (d["NCHAIN"],)),
+        ("dof_chain", "i", (V,)),
+        ("ba_rowoff", "i", (V,)),
+        ("ba_shift", "i", (V,)),
+        ("ba_ij", "i", (d["NBA"],)),
+        ("sup_ij", "i", (nsup * (nsup + 1) // 2,)),
+        ("foot_chain", "i", (F,)),
         ("act_qadr", "i", (U,)),
         ("act_dadr", "i", (U,)),
         ("act_ctrlrange", "f", (U, 2)),
@@ -199,9 +302,11 @@ def check_supported(m: Model) -> None:
         raise NotImplementedError("the CUDA kernel needs the floor's contact params to win")
     if any(s.jnt_type[j] != FREE and s.jnt_type[j] != 3 for j in range(s.njnt)):
         raise NotImplementedError("only free and hinge joints")
+    if max(s.nv, s.nbody, s.hull_nvert) > 32:
+        raise NotImplementedError("dof, body and hull-vertex sets are 32-bit masks in the kernel")
 
 
-def model_tables(m: Model) -> Dict[str, np.ndarray]:
+def model_tables(m: Model, dense: bool = False) -> Dict[str, np.ndarray]:
     """The MkModel fields of `m` as numpy arrays. Derived constants (solref
     gains, friction-row regularizers) come from the engine's own f32
     functions on the model's tensors, so kernel and plain version share
@@ -215,6 +320,16 @@ def model_tables(m: Model) -> Dict[str, np.ndarray]:
     pred = structure.dof_pred_mask(s)
     lim = [int(j) for j in structure.limited_hinges(s)]
     fd = list(s.friction_dofs)
+    lim_dofs = [s.jnt_dofadr[j] for j in lim]
+    if len(set(fd)) != len(fd) or len(set(lim_dofs)) != len(lim_dofs):
+        raise NotImplementedError("the kernel takes one friction row and one limit row per dof")
+    levels = structure.tree_levels(s)
+    subtree = np.eye(s.nbody, dtype=bool)
+    for b in range(s.nbody - 1, 0, -1):  # parents precede children
+        subtree[s.body_parentid[b]] |= subtree[b]
+    part = partition(s, dense)
+    rowoff, shift, entries = part.row_offsets(s.nv)
+    nsup = part.root + part.max_chain
     floor = s.floor_geom_id
     floor_b = s.geom_bodyid[floor]
     feet_b = [s.geom_bodyid[g] for g in s.collide_geom_ids]
@@ -246,6 +361,9 @@ def model_tables(m: Model) -> Dict[str, np.ndarray]:
         body_jntnum=np.array(s.body_jntnum),
         body_intree=anc.any(axis=1).astype(np.float32),
         body_dofs=np.array([bits(r) for r in anc], dtype=np.uint32),
+        body_sub=np.array([bits(r) for r in subtree], dtype=np.uint32),
+        level_start=np.cumsum([0] + [len(l) for l in levels]),
+        level_body=np.array([b for l in levels for b in l]),
         body_pos=npf(m.body_pos),
         body_quat=npf(m.body_quat),
         body_iquat=npf(m.body_iquat),
@@ -260,6 +378,16 @@ def model_tables(m: Model) -> Dict[str, np.ndarray]:
         dof_pred=np.array([bits(r) for r in pred], dtype=np.uint32),
         dof_ftm=structure.free_trans_mask(s),
         dof_damping=npf(m.dof_damping),
+        dof_fric=np.array([fd.index(v) if v in fd else -1 for v in range(s.nv)]),
+        dof_lim=np.array([lim_dofs.index(v) if v in lim_dofs else -1 for v in range(s.nv)]),
+        chain_start=np.array([a for a, _ in part.chains]),
+        chain_end=np.array([e for _, e in part.chains]),
+        dof_chain=np.array(part.dof_chain(s.nv)),
+        ba_rowoff=np.array(rowoff),
+        ba_shift=np.array(shift),
+        ba_ij=np.array([i | j << 8 for i, j in entries]),
+        sup_ij=np.array([i | j << 8 for i in range(nsup) for j in range(i + 1)]),
+        foot_chain=np.array(part.foot_chain),
         act_qadr=np.array([s.jnt_qposadr[j] for j in s.actuator_trnid]),
         act_dadr=np.array([s.jnt_dofadr[j] for j in s.actuator_trnid]),
         act_ctrlrange=npf(m.actuator_ctrlrange),
@@ -285,13 +413,13 @@ def model_tables(m: Model) -> Dict[str, np.ndarray]:
         fric_b=fric_b.numpy(),
         fric_R=fric_R.numpy(),
         lim_qadr=np.array([s.jnt_qposadr[j] for j in lim]),
-        lim_dadr=np.array([s.jnt_dofadr[j] for j in lim]),
+        lim_dadr=np.array(lim_dofs),
         lim_range=npf(m.jnt_range)[lim],
         lim_margin=npf(m.jnt_margin)[lim],
         lim_k=lim_k.numpy(),
         lim_b=lim_b.numpy(),
         lim_solimp=npf(m.jnt_solimp)[lim],
-        lim_invw=npf(m.dof_invweight0)[[s.jnt_dofadr[j] for j in lim]],
+        lim_invw=npf(m.dof_invweight0)[lim_dofs],
         gravity=npf(m.gravity),
         timestep=np.array(s.timestep),
         iterations=np.array(s.iterations),
@@ -300,10 +428,10 @@ def model_tables(m: Model) -> Dict[str, np.ndarray]:
     )
 
 
-def model_struct(m: Model):
-    """A filled ctypes MkModel for `m`."""
-    dims = kernel_dims(m.spec)
-    tables = model_tables(m)
+def model_struct(m: Model, dense: bool = False):
+    """A filled ctypes MkModel for `m` (`dense`: the degenerate partition)."""
+    dims = kernel_dims(m.spec, dense)
+    tables = model_tables(m, dense)
     st = model_struct_type(dims)()
     for name, kind, shape in _struct_fields(dims):
         v = np.array(tables[name], dtype=_NPTYPES[kind], order="C")
@@ -315,6 +443,37 @@ def model_struct(m: Model):
         else:
             setattr(st, name, v.item())
     return st
+
+
+# ------------------------------------------- the factorization's plain version
+def block_arrow_solve(A: torch.Tensor, b: torch.Tensor, part: Partition) -> torch.Tensor:
+    """`A^{-1} b` for symmetric positive definite `A` (..., nv, nv) whose
+    entries between different chains are zero, by the kernel's elimination
+    order in plain torch: every chain block factored on its own, its panel
+    to the root solved against that factor, the root block reduced by the
+    panels' Schur complement and factored last, then the solve chains
+    forward, root, chains backward. Entries of `A` outside the block-arrow
+    pattern are never read, so agreement with a dense solve shows that the
+    pattern has no fill-in."""
+    r = part.root
+    t = lambda x: x.transpose(-1, -2)
+    factors = []
+    S = A[..., :r, :r]
+    br = b[..., :r]
+    for a, e in part.chains:
+        F = linalg.cholesky(A[..., a:e, a:e])
+        X = t(linalg.solve_lower(F[..., None, :, :], t(A[..., a:e, :r])))  # F^{-1} A_cr, (nc, r)
+        u = linalg.solve_lower(F, b[..., a:e])
+        S = S - t(X) @ X
+        br = br - (t(X) @ u[..., None])[..., 0]
+        factors.append((F, X, u))
+    x = torch.empty_like(b)
+    if r:
+        Fr = linalg.cholesky(S)
+        x[..., :r] = linalg.solve_upper_t(Fr, linalg.solve_lower(Fr, br))
+    for (a, e), (F, X, u) in zip(part.chains, factors):
+        x[..., a:e] = linalg.solve_upper_t(F, u - (X @ x[..., :r, None])[..., 0])
+    return x
 
 
 # ------------------------------------------------------------ per-env tensors
@@ -402,13 +561,13 @@ def dim_flags(dims: Dict[str, int]) -> List[str]:
 class _Kernel:
     """One built library: its ctypes handle, build time and ptxas report."""
 
-    def __init__(self, dims: Dict[str, int]):
-        self.dims = dims
-        built = cuda_build.build("megakernel.cu", dim_flags(dims), headers=("megakernel.cuh",))
+    def __init__(self, dims: Dict[str, int], dense: bool = False, source: str = "megakernel.cu"):
+        self.dims, self.dense = dims, dense
+        built = cuda_build.build(source, [*dim_flags(dims), f"-I{CSRC}"], headers=("megakernel.cuh",))
         self.build_seconds, self.ptxas = built.build_seconds, built.ptxas_lines()
         lib = built.lib
         lib.mk_model_size.restype = ctypes.c_int
-        lib.mk_block_size.restype = ctypes.c_int
+        lib.mk_shared_size.restype = ctypes.c_int
         lib.mk_set_model.argtypes = [ctypes.c_void_p]
         lib.mk_set_model.restype = ctypes.c_int
         lib.mk_step.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -420,12 +579,12 @@ class _Kernel:
         if lib.mk_model_size() != ctypes.sizeof(self.struct_type):
             raise RuntimeError("MkModel layout differs between megakernel.cuh and the wrapper")
         # per device index: the model whose structure is in that device's
-        # constant memory, and its height table (None on a plane)
+        # memory, and its height table (None on a plane)
         self._uploaded: Dict[int, Tuple] = {}
         self._hfield: Dict[int, Optional[torch.Tensor]] = {}
 
     def upload(self, m: Model) -> Optional[torch.Tensor]:
-        """Put the model's structure tables in constant memory of the
+        """Put the model's structure tables in device memory of the
         current device when they are not there yet (`model_tables` checks
         that the kernel supports the model), and make the height table of a
         heightfield model, once per model. Domain randomization replaces
@@ -438,7 +597,7 @@ class _Kernel:
         done = self._uploaded.get(dev, ())
         if len(key) == len(done) and all(a is b for a, b in zip(key, done)):
             return self._hfield[dev]
-        st = model_struct(m)
+        st = model_struct(m, self.dense)
         err = self.lib.mk_set_model(ctypes.byref(st))
         if err:
             raise RuntimeError(f"mk_set_model failed: CUDA error {err}")
@@ -447,36 +606,44 @@ class _Kernel:
         return self._hfield[dev]
 
     def info(self) -> Dict[str, int]:
-        """Local memory, registers, occupancy of the built kernel."""
-        out = (ctypes.c_int * 5)()
+        """Local memory, registers, shared memory and occupancy of the
+        built kernel."""
+        out = (ctypes.c_int * 9)()
         err = self.lib.mk_kernel_info(out)
         if err:
             raise RuntimeError(f"mk_kernel_info failed: CUDA error {err}")
-        return dict(local_bytes_per_thread=out[0], registers_per_thread=out[1],
+        info = dict(local_bytes_per_thread=out[0], registers_per_thread=out[1],
                     max_threads_per_block=out[2], blocks_per_sm=out[3], sms=out[4],
-                    block_size=self.lib.mk_block_size())
+                    shared_bytes_per_block=out[5], lanes_per_env=out[6], block_size=out[7],
+                    shared_bytes_per_env=out[8])
+        info["envs_per_block"] = info["block_size"] // info["lanes_per_env"]
+        info["resident_envs_per_sm"] = info["blocks_per_sm"] * info["envs_per_block"]
+        info["resident_warps_per_sm"] = info["blocks_per_sm"] * info["block_size"] / 32
+        return info
 
 
 _KERNELS: Dict[Tuple, _Kernel] = {}
 
 
-def kernel(spec: ModelSpec) -> _Kernel:
-    """The built kernel for this model shape (built at first use)."""
-    dims = kernel_dims(spec)
+def kernel(spec: ModelSpec, dense: bool = False) -> _Kernel:
+    """The built kernel for this model shape (built at first use). `dense`
+    builds it on the degenerate partition."""
+    dims = kernel_dims(spec, dense)
     key = tuple(sorted(dims.items()))
     if key not in _KERNELS:
-        _KERNELS[key] = _Kernel(dims)
+        _KERNELS[key] = _Kernel(dims, dense)
     return _KERNELS[key]
 
 
-def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int) -> Data:
+def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int,
+                    dense: bool = False) -> Data:
     """n_substeps substeps of every env in one launch of the CUDA kernel.
     Takes CUDA tensors only (`forward.step` routes CPU tensors to the plain
-    version)."""
-    global launches, launches_hfield
+    version). `dense` chooses the build as in `kernel`."""
+    global launches, launches_hfield, launches_dense
     if not d.qpos.is_cuda:
         raise TypeError(f"the CUDA kernel takes CUDA tensors, got qpos on {d.qpos.device}")
-    k = kernel(m.spec)
+    k = kernel(m.spec, dense)
     stream = torch.cuda.current_stream(d.qpos.device).cuda_stream
     with torch.cuda.device(d.qpos.device):
         hfield = k.upload(m)
@@ -487,4 +654,5 @@ def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int) -> D
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     launches += 1
     launches_hfield += int(m.spec.floor_is_hfield)
+    launches_dense += int(k.dims["NROOT"] == 0)
     return data_from_outputs(d, ctrl, outputs)

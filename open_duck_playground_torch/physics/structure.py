@@ -2,8 +2,8 @@
 
 Counterpart of `open_duck_playground_tpu/physics/structure.py`: the engine
 gathers with these precomputed index arrays instead of walking the tree per
-body. `dof_chain_blocks` (the block-arrow partition) is kept for the kernel
-work that will use it; the dense kernel of this package does not.
+body. `dof_chain_blocks` (the block-arrow partition) and `tree_levels` also
+shape the CUDA kernel's tables (`megakernel.partition`, `model_tables`).
 """
 
 from __future__ import annotations

@@ -73,6 +73,58 @@ def test_cuda_kernel_matches_step_reference(cuda):
     assert torch.equal(got.qacc_warmstart, got.qacc)
 
 
+def test_cuda_dense_partition_matches_step_reference(cuda):
+    """The same source on the degenerate partition (no root, one chain of
+    all dofs), which a model without block-arrow shape takes: max gates one
+    substep from a shared state, and the launch counts say which build ran."""
+    model = loader.load_model(device=cuda, timestep=0.002)
+    batch = 300
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    m = domain_randomize(model, DRDraws.sample(gen, batch, model.spec))
+    qpos = model.key_qpos + 0.01 * torch.randn(batch, model.spec.nq, generator=gen, device=cuda)
+    qvel = 0.1 * torch.randn(batch, model.spec.nv, generator=gen, device=cuda)
+    ctrl = model.key_ctrl.expand(batch, -1).contiguous()
+    d0 = F.init(m, qpos, qvel, ctrl)
+    before = MK.launches_dense
+    k1, p1 = MK.megakernel_step(m, d0, ctrl, 1, dense=True), F.step_reference(m, d0, ctrl, 1)
+    assert MK.launches_dense == before + 1
+    for f, mx in (("qpos", 1e-4), ("qvel", 1e-2), ("contact_dist", 1e-6)):
+        assert _per_env(getattr(k1, f), getattr(p1, f)).max() < mx, f
+    info = MK.kernel(model.spec).info()
+    assert info["lanes_per_env"] > 1 and info["local_bytes_per_thread"] <= 256
+    assert info["resident_warps_per_sm"] >= 8
+
+
+@pytest.mark.parametrize("scene", ["scene_flat_terrain_backlash", "scene_rough_terrain_backlash"])
+def test_cuda_kernel_survives_nan_state(cuda, scene):
+    """Blown-up envs (NaN base position) stay NaN for the quarantine and
+    leave every other env bit for bit as it is without them, at the
+    committed lanes per env: the warp arg-min over hull vertices and the
+    lanes' sums see the NaN only here (the host build runs them on one lane
+    or on threads, without shuffles and lane masks). The bad envs sit at
+    both ends of a block and in the ragged last one."""
+    model = loader.load_model(scene, device=cuda, timestep=0.002)
+    batch = 67
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    m = domain_randomize(model, DRDraws.sample(gen, batch, model.spec))
+    qpos = model.key_qpos + 0.01 * torch.randn(batch, model.spec.nq, generator=gen, device=cuda)
+    qvel = 0.1 * torch.randn(batch, model.spec.nv, generator=gen, device=cuda)
+    ctrl = model.key_ctrl.expand(batch, -1).contiguous()
+    d0 = F.init(m, qpos, qvel, ctrl)
+    bad_envs = [0, 7, 13, 66]
+    bad = d0.replace(qpos=d0.qpos.clone())
+    bad.qpos[bad_envs, :3] = float("nan")
+    assert MK.kernel(model.spec).info()["lanes_per_env"] == 32
+    got, ref = MK.megakernel_step(m, bad, ctrl, 2), MK.megakernel_step(m, d0, ctrl, 2)
+    plain = F.step_reference(m, bad, ctrl, 2)
+    keep = [e for e in range(batch) if e not in bad_envs]
+    for e in bad_envs:
+        assert torch.isnan(got.qpos[e]).any() and torch.isnan(plain.qpos[e]).any()
+    for f in ("qpos", "qvel", "qacc", "sensordata", "contact_dist"):
+        assert torch.equal(getattr(got, f)[keep], getattr(ref, f)[keep]), f
+    assert torch.isfinite(got.qpos[keep]).all()
+
+
 def test_cuda_kernel_rejects_what_it_cannot_take(cuda):
     model = loader.load_model(device=cuda, timestep=0.002)
     ctrl = model.key_ctrl.expand(4, -1).contiguous()

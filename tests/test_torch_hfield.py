@@ -17,10 +17,7 @@ package.
   with its own draws injected (tolerances of test_torch_envs.py).
 """
 
-import ctypes
 import dataclasses
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -48,7 +45,7 @@ from open_duck_playground_torch.physics.types import Model
 from test_torch_envs import (
     assert_obs_close, assert_reward_close, jax_reset_draws, jax_step_draws,
 )
-from test_torch_physics import _assert_gates, _per_env, GATES
+from test_torch_physics import GATES, _assert_gates, _per_env, build_host_kernel, host_step
 
 torch.set_num_threads(1)
 
@@ -168,26 +165,13 @@ def test_hfield_step_reference_matches_jax_f32(models32):
 def host_kernel(models32, tmp_path_factory):
     """csrc/megakernel.cuh with MK_HFIELD=1, compiled by the host C++ compiler."""
     _, tm, _, _ = models32
-    cxx = shutil.which("g++") or shutil.which("c++")
-    assert cxx, "a host C++ compiler is needed for the kernel-arithmetic test"
-    out = tmp_path_factory.mktemp("mkh") / "libmk_host.so"
-    dims = MK.kernel_dims(tm.spec)
-    assert dims["HFIELD"] == 1
-    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", *MK.dim_flags(dims),
-                    "-o", str(out), str(MK.CSRC / "megakernel_host.cpp")], check=True)
-    lib = ctypes.CDLL(str(out))
-    lib.mk_host_step.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    lib.mk_host_step.restype = ctypes.c_int
-    assert lib.mk_model_size() == ctypes.sizeof(MK.model_struct_type(dims))
-    return lib
+    assert MK.kernel_dims(tm.spec)["HFIELD"] == 1
+    return build_host_kernel(tm.spec, tmp_path_factory.mktemp("mkh"))
 
 
 def _host_step(lib, m, d, ctrl, n):
-    ins, outs = MK.kernel_tensors(m, d, ctrl, n)
-    assert len(ins) + len(outs) == 24  # the height table is the 15th input
-    st = MK.model_struct(m)
-    assert lib.mk_host_step(ctypes.byref(st), MK.pointer_array(ins + outs), d.qpos.shape[0], n) == 0
-    return MK.data_from_outputs(d, ctrl, outs)
+    assert len(sum(MK.kernel_tensors(m, d, ctrl, n), [])) == 24  # the height table is the 15th input
+    return host_step(lib, m, d, ctrl, n)
 
 
 @pytest.mark.parametrize("dr", [False, True], ids=["nominal", "randomized"])

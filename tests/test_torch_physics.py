@@ -8,9 +8,11 @@
   max 1e-2; derived fields at p90: sensordata 5e-2, site_xpos 1e-4,
   actuator_force 1e-2.
 - The kernel's arithmetic (csrc/megakernel.cuh) built by the host C++
-  compiler and held against `step_reference` under the same gates. The
-  same body runs on the card through csrc/megakernel.cu; test_torch_gpu.py
-  and chip_smoke.py hold that build against the plain version.
+  compiler (one lane) and held against `step_reference` under the same
+  gates. The same body runs on the card through csrc/megakernel.cu;
+  test_torch_gpu.py and chip_smoke.py hold that build against the plain
+  version. test_torch_blockarrow.py holds the degenerate partition, the
+  partition tables and a many-lane host build.
 """
 
 import ctypes
@@ -155,21 +157,89 @@ def test_kernel_wrapper_checks_its_inputs(models32):
         MK.check_supported(hfield)
 
 
+def build_host_kernel(spec, out_dir, dense=False, flags=()):
+    """csrc/megakernel_host.cpp (the kernel body with a host lane context)
+    compiled by the host C++ compiler for this model shape."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a host C++ compiler is needed for the kernel-arithmetic test"
+    out = out_dir / "libmk_host.so"
+    dims = MK.kernel_dims(spec, dense)
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", *MK.dim_flags(dims),
+                    *flags, "-o", str(out), str(MK.CSRC / "megakernel_host.cpp")], check=True)
+    lib = ctypes.CDLL(str(out))
+    for fn in ("mk_host_step", "mk_host_step_lanes"):
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            getattr(lib, fn).restype = ctypes.c_int
+    assert lib.mk_model_size() == ctypes.sizeof(MK.model_struct_type(dims))
+    return lib
+
+
+def host_step(lib, m, d, ctrl, n, dense=False, fn="mk_host_step"):
+    ins, outs = MK.kernel_tensors(m, d, ctrl, n)
+    st = MK.model_struct(m, dense)
+    assert getattr(lib, fn)(ctypes.byref(st), MK.pointer_array(ins + outs), d.qpos.shape[0], n) == 0
+    return MK.data_from_outputs(d, ctrl, outs)
+
+
+EDGE_COPIES, SMOOTH_COPIES, EDGE_SCALE = 256, 16, 1e-6
+
+
+def perturbed_plain(m, d, ctrl, envs, copies, gen):
+    """One substep of the plain version from `copies` copies of each env of
+    `envs`, qpos and qvel perturbed at rounding scale (relative EDGE_SCALE;
+    copy 0 of each env is the unperturbed input). Returns the gated fields,
+    each shaped (len(envs), copies, -1)."""
+    from open_duck_playground_torch.physics.types import RANDOMIZED_FIELDS
+
+    sel = torch.as_tensor(list(envs)).repeat_interleave(copies)
+    mm = m.replace(**{f: getattr(m, f)[sel] for f in RANDOMIZED_FIELDS if m.is_batched(f)})
+    dd = d.map(lambda x: x[sel])
+
+    def perturb(x):
+        noise = torch.randn(x.shape, generator=gen)
+        noise[::copies] = 0
+        return x * (1 + EDGE_SCALE * noise)
+
+    p = TF.step_reference(mm, dd.replace(qpos=perturb(dd.qpos), qvel=perturb(dd.qvel)), ctrl[sel], 1)
+    return {f: getattr(p, f).double().reshape(len(sel) // copies, copies, -1).numpy() for f, _, _ in GATES}
+
+
+def plain_jump(p):
+    """Per env, how far the perturbed copies' results lie from the
+    unperturbed one, in units of the max gates."""
+    return np.max([np.abs(p[f] - p[f][:, :1]).max((1, 2)) / mx for f, _, mx in GATES], 0)
+
+
+def assert_substep_gates(m, d, ctrl, got, want, label=""):
+    """One substep from the shared state `d`: every env within the max gates
+    of the plain version, or shown to sit at an edge of the plain version
+    itself. The 1-iteration Newton step is discontinuous where a constraint
+    row starts at the edge of its active set (and a hull vertex on a
+    triangle's edge flips its normal), so two f32 evaluations that differ in
+    their last bits may land on different sides. Such an env passes only if
+    the plain version jumps there too: from its input perturbed at rounding
+    scale (EDGE_COPIES copies, relative EDGE_SCALE) its own result moves by
+    at least the max gate, and one of those results is within the max gates
+    of the kernel's in every field (the rule of chip_smoke.py). Returns the
+    number of edge envs."""
+    over = np.zeros(d.qpos.shape[0], bool)
+    for f, _, mx in GATES:
+        over |= _per_env(getattr(got, f), getattr(want, f)) >= mx
+    gen = torch.Generator().manual_seed(1)
+    for env in np.nonzero(over)[0]:
+        p = perturbed_plain(m, d, ctrl, [int(env)], EDGE_COPIES, gen)
+        err = np.max([np.abs(p[f][0] - getattr(got, f)[env].double().numpy().reshape(1, -1)).max(1) / mx
+                      for f, _, mx in GATES], 0)
+        assert plain_jump(p)[0] >= 1 and err.min() < 1, (label, "env over the max gate and not at an edge",
+                                                         int(env), err.min())
+    return int(over.sum())
+
+
 @pytest.fixture(scope="module")
 def host_kernel(models32, tmp_path_factory):
     """csrc/megakernel.cuh compiled by the host C++ compiler (test harness)."""
-    _, tm, _, _ = models32
-    cxx = shutil.which("g++") or shutil.which("c++")
-    assert cxx, "a host C++ compiler is needed for the kernel-arithmetic test"
-    out = tmp_path_factory.mktemp("mk") / "libmk_host.so"
-    dims = MK.kernel_dims(tm.spec)
-    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", *MK.dim_flags(dims),
-                    "-o", str(out), str(MK.CSRC / "megakernel_host.cpp")], check=True)
-    lib = ctypes.CDLL(str(out))
-    lib.mk_host_step.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    lib.mk_host_step.restype = ctypes.c_int
-    assert lib.mk_model_size() == ctypes.sizeof(MK.model_struct_type(dims))
-    return lib
+    return build_host_kernel(models32[1].spec, tmp_path_factory.mktemp("mk"))
 
 
 @pytest.mark.parametrize("dr", [False, True], ids=["nominal", "randomized"])
@@ -192,21 +262,41 @@ def test_kernel_arithmetic_matches_step_reference(models32, host_kernel, dr):
 
 def test_kernel_arithmetic_matches_every_substep(models32, host_kernel):
     """Substep by substep from the kernel's own trajectory, every env agrees
-    with the plain version within the strict max gates: where 10-substep
-    trajectories part, it is the 1-iteration Newton solve's discontinuity
-    (a row starting a substep at jar = 0), not a different function."""
+    with the plain version within the strict max gates, on a trajectory where
+    the plain version itself is checked to be smooth (no env's result moves
+    by a max gate when its input is perturbed at rounding scale): where
+    10-substep trajectories part, it is the 1-iteration Newton solve's
+    discontinuity (a row starting a substep at jar = 0), not a different
+    function."""
     _, tm, kq, kc = models32
     batch = 64
-    qpos, qvel, ctrl = (torch.as_tensor(x) for x in _inputs(0, batch, np.float32, kq, kc))
+    qpos, qvel, ctrl = (torch.as_tensor(x) for x in _inputs(2, batch, np.float32, kq, kc))
     qpos[:, 2] -= 0.01  # feet into the floor: every contact row in play
     d = TF.init(tm, qpos, qvel, ctrl)
-    st = MK.model_struct(tm)
+    gen = torch.Generator().manual_seed(2)
     for _ in range(10):
-        ins, outs = MK.kernel_tensors(tm, d, ctrl, 1)
-        assert host_kernel.mk_host_step(ctypes.byref(st), MK.pointer_array(ins + outs), batch, 1) == 0
-        got = MK.data_from_outputs(d, ctrl, outs)
+        got = host_step(host_kernel, tm, d, ctrl, 1)
         want = TF.step_reference(tm, d, ctrl, 1)
         for f, _, mx in GATES:
             e = _per_env(getattr(got, f), getattr(want, f))
             assert e.max() < mx, (f, e.max())
+        assert plain_jump(perturbed_plain(tm, d, ctrl, range(batch), SMOOTH_COPIES, gen)).max() < 1
         d = got
+
+
+def test_kernel_arithmetic_edge_envs_are_edges_of_the_plain_version(models32, host_kernel):
+    """A trajectory on which one env meets a Newton edge (env 40 at the
+    tenth substep): every env is within the max gates or certified as an
+    edge of the plain version (`assert_substep_gates`), and the edge is
+    there, so the certification itself is exercised."""
+    _, tm, kq, kc = models32
+    batch = 64
+    qpos, qvel, ctrl = (torch.as_tensor(x) for x in _inputs(0, batch, np.float32, kq, kc))
+    qpos[:, 2] -= 0.01
+    d = TF.init(tm, qpos, qvel, ctrl)
+    edges = 0
+    for _ in range(10):
+        got = host_step(host_kernel, tm, d, ctrl, 1)
+        edges += assert_substep_gates(tm, d, ctrl, got, TF.step_reference(tm, d, ctrl, 1))
+        d = got
+    assert 1 <= edges <= 2  # of 640 env-substeps
