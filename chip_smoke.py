@@ -6,18 +6,20 @@
 Phases, one JSON line each (a phase that has several kernels prints several):
   1. device: the card's name and power limit;
   2. build: nvcc builds, side by side, the physics megakernel for the plane
-     scene, for the heightfield scene (-DMK_HFIELD=1) and for the plane
-     scene on the degenerate (dense) partition, and the issue-rate probe,
-     from csrc/ into build/kernels/; each megakernel line carries lanes per
-     env, shared bytes per block, local bytes per thread and resident warps
-     per SM;
+     scene, for the heightfield scene (-DMK_HFIELD=1), for the plane scene
+     on the degenerate (dense) partition and for the robot without backlash
+     joints on the plane (flat_terrain), and the issue-rate probe, from
+     csrc/ into build/kernels/; each megakernel line carries lanes per env,
+     shared bytes per block, local bytes per thread and resident warps per
+     SM;
   3. kernel_vs_plain, kernel_timing: each megakernel build against its plain
      version (`forward.step_reference`) at 8192 domain-randomized envs,
      substep by substep along the kernel's trajectory and over 10 substeps
      in one launch, with times (also at 4x the envs) and the card's least
      time for the same work; the heightfield run spreads the envs over
      +-3 m of rough terrain and must see active contacts on tilted
-     triangles; the degenerate partition runs the same check at 1024 envs;
+     triangles; the degenerate partition runs the same check at 1024 envs,
+     and the plane build at the evaluator's shape (128 envs, nominal model);
   4. rollout: the training rollout (TrainingEnv + Joystick on
      flat_terrain_backlash, the 128x4 policy in the loop), 8192 envs x 5
      control steps, every physics step through the plane kernel;
@@ -26,7 +28,18 @@ Phases, one JSON line each (a phase that has several kernels prints several):
   6. ppo_step: `train.ppo.training_step` on Joystick("rough_terrain_backlash")
      at the full PPO config (8192 envs, unroll 20, 4 x 32 minibatches of
      256), 2 steps after a warm-up step, every physics step through the
-     heightfield kernel.
+     heightfield kernel;
+  7. cli: `cli.runner.main` at the full PPO config on joystick /
+     flat_terrain_backlash into a temporary directory: an initial eval, one
+     training step and an eval (num_evals=2), then a resume from the last
+     checkpoint (num_evals=3: an eval at the restored step, one training
+     step, an eval); every checkpoint and .onnx file is checked, each .onnx
+     through the numpy runtime against the torch deterministic action, and
+     the resume must continue env_steps, Adam's step and the generator;
+     eval (128 envs x 1000 control steps) and training physics through the
+     plane kernel;
+  8. standing: one full-width training step of standing / flat_terrain,
+     every physics step through the flat_terrain build.
 Then the kernel table, the nvidia-smi line, and `{"ok": true, ...}` last.
 Exits non-zero, printing no result, without a CUDA card or when a phase
 fails. Needs no network; the kernel builds count against the run.
@@ -34,9 +47,12 @@ fails. Needs no network; the kernel builds count against the run.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -46,6 +62,9 @@ import torch
 N_ENVS = 8192
 N_ENVS_DENSE = 1024  # the degenerate partition's check: no training path runs it
 N_SUBSTEPS = 10
+CLI_TASK = "flat_terrain_backlash"
+CLI_STEPS = 163_840  # one training step at the full PPO config
+ONNX_TOLERANCE = 1e-5
 # Per-env gates of the kernel against its plain version, (p90, max), the
 # interpret-mode test's tolerances (test_megakernel_interpret.py). The
 # kernel steps the envs one substep per launch, 10 times; each substep is
@@ -245,15 +264,19 @@ def load_modules():
     """The port's modules, imported after the card is known to be there."""
     import types
 
-    from open_duck_playground_torch.envs import joystick, randomize, wrappers
+    from open_duck_playground_torch.cli import runner
+    from open_duck_playground_torch.envs import joystick, randomize, standing, wrappers
+    from open_duck_playground_torch.export import onnx_export, onnx_runtime
     from open_duck_playground_torch.models import loader
     from open_duck_playground_torch.physics import collision, forward, kinematics, megakernel
     from open_duck_playground_torch.tools import issue_bench
-    from open_duck_playground_torch.train import config, networks, ppo, running_stats
+    from open_duck_playground_torch.train import checkpoint, config, networks, ppo, running_stats
 
     return types.SimpleNamespace(
-        J=joystick, R=randomize, W=wrappers, loader=loader, C=collision, F=forward, K=kinematics,
-        MK=megakernel, IB=issue_bench, cfg=config, N=networks, ppo=ppo, RS=running_stats)
+        J=joystick, R=randomize, S=standing, W=wrappers, loader=loader, C=collision, F=forward,
+        K=kinematics, MK=megakernel, IB=issue_bench, cfg=config, N=networks, ppo=ppo,
+        RS=running_stats, cli=runner, CKPT=checkpoint, onnx_export=onnx_export,
+        onnx_runtime=onnx_runtime)
 
 
 def build_phase(P, models):
@@ -287,12 +310,13 @@ def build_phase(P, models):
     return kernels
 
 
-def start_state(P, model, gen, hfield: bool, n_envs: int = N_ENVS):
-    """Domain-randomized envs near the home keyframe (qpos 0.01, qvel 0.1
+def start_state(P, model, gen, hfield: bool, n_envs: int = N_ENVS, randomize: bool = True):
+    """Domain-randomized envs (the nominal model where not `randomize`, as
+    the evaluator runs it) near the home keyframe (qpos 0.01, qvel 0.1
     normal). On the heightfield the base is spread uniformly over +-3 m in x
     and y and lifted as the env's spawn is (hfield_size[2] + 0.002)."""
     dev = model.device
-    m = P.R.domain_randomize(model, P.R.DRDraws.sample(gen, n_envs, model.spec))
+    m = P.R.domain_randomize(model, P.R.DRDraws.sample(gen, n_envs, model.spec)) if randomize else model
     rng = np.random.default_rng(0)
     kq, kc = model.key_qpos.cpu().numpy(), model.key_ctrl.cpu().numpy()
     qpos = np.tile(kq, (n_envs, 1)) + 0.01 * rng.standard_normal((n_envs, kq.size))
@@ -316,16 +340,18 @@ def terrain_contacts(P, m, d):
     return int(active.any(1).sum()), int(tilted.sum()), int(active.sum())
 
 
-def kernel_phase(P, name, model, gen, replaces, timing_reps, dense=False, n_envs=N_ENVS):
+def kernel_phase(P, name, model, gen, replaces, timing_reps, dense=False, n_envs=N_ENVS,
+                 randomize=True):
     """kernel_vs_plain and kernel_timing of one megakernel build; returns
     its row of the kernel table. The first launch, with the counts at 0
     just before it, is the degenerate partition's whole path (`launches` of
     its row); the other builds' rows get their launches from the training
-    paths later."""
+    paths later. `randomize=False` runs the nominal model, every env on the
+    same fields, as the evaluator does."""
     MK, F = P.MK, P.F
     dev = model.device
     hfield = model.spec.floor_is_hfield
-    m, d0, ctrl = start_state(P, model, gen, hfield, n_envs)
+    m, d0, ctrl = start_state(P, model, gen, hfield, n_envs, randomize)
     step = lambda mm, dd, cc, n: MK.megakernel_step(mm, dd, cc, n, dense)
     MK.reset_launches()
     got = step(m, d0, ctrl, N_SUBSTEPS)
@@ -374,7 +400,8 @@ def kernel_phase(P, name, model, gen, replaces, timing_reps, dense=False, n_envs
                    "active_contacts_with_tilted_normal": tilted}
         if touching == 0 or tilted == 0:
             failures.append("no active contact on a tilted triangle")
-    emit({"phase": "kernel_vs_plain", "kernel": name, "envs": n_envs, "substeps": N_SUBSTEPS,
+    emit({"phase": "kernel_vs_plain", "kernel": name, "envs": n_envs, "randomized": randomize,
+          "substeps": N_SUBSTEPS,
           "gates": {"p90_max": GATES, "derived_p90": DERIVED_P90,
                     "edge_copies": EDGE_COPIES, "edge_scale": EDGE_SCALE},
           "errors": check, "edges": edges, **terrain, "finite": finite,
@@ -390,7 +417,7 @@ def kernel_phase(P, name, model, gen, replaces, timing_reps, dense=False, n_envs
     bound_ms = max(bytes_ms, ops_ms)
     # the same launch at 4x the envs: where the card is full, the time per
     # env stays; where latency, not work, sets the time, it falls
-    m4 = P.R.domain_randomize(model, P.R.DRDraws.sample(gen, 4 * n_envs, model.spec))
+    m4 = P.R.domain_randomize(model, P.R.DRDraws.sample(gen, 4 * n_envs, model.spec)) if randomize else model
     d4 = d0.map(lambda x: x.repeat((4,) + (1,) * (x.dim() - 1)))
     ctrl4 = ctrl.repeat(4, 1)
     ms4 = cuda_ms(lambda: step(m4, d4, ctrl4, N_SUBSTEPS), 3)
@@ -602,6 +629,232 @@ def ppo_phase(P, gen, smi) -> int:
     return launches_hfield
 
 
+@contextlib.contextmanager
+def wrapped(module, name, wrapper):
+    """`module.name` replaced by `wrapper(original)` inside the block."""
+    original = getattr(module, name)
+    setattr(module, name, wrapper(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def timed(record: list, on_result=None):
+    """A wrapper that appends each call's seconds (card synchronized on both
+    sides) to `record`, and hands (args, result) to `on_result`."""
+
+    def wrapper(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.append(time.perf_counter() - t0)
+            if on_result is not None:
+                on_result(args, out)
+            return out
+
+        return call
+
+    return wrapper
+
+
+def adam_step(optimizer) -> float:
+    """Adam's step, 0 before the first (when it holds no state yet)."""
+    steps = {float(s["step"]) for s in optimizer.state.values()} or {0.0}
+    if len(steps) != 1:
+        raise SystemExit(f"Adam's parameters disagree on their step: {sorted(steps)}")
+    return steps.pop()
+
+
+def checkpoint_policy(P, path: pathlib.Path, obs, action_size: int, dev):
+    """The deterministic policy of the full checkpoint in `path`."""
+    cfg = P.cfg.PPOConfig()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ts = P.ppo.init_training_state(obs, action_size, cfg, gen, device=dev)
+    ts, _ = P.CKPT.restore_training_state(path, ts)
+    return P.ppo.make_policy((ts.normalizer, ts.net), deterministic=True)
+
+
+def cli_phase(P, gen, smi, spec) -> int:
+    """The training CLI end to end at the full PPO config; returns the
+    launches over both runs of the plane kernel of `spec` (the task's
+    model)."""
+    dev = gen.device
+    ppo, CKPT = P.ppo, P.CKPT
+    cfg = P.cfg.PPOConfig()
+    evals, saves, restores, exports, phases = [], [], [], [], []
+    eval_metrics, save_log, restore_log = [], [], []
+
+    def training_step(fn):
+        def call(*args, **kwargs):
+            marks = []
+
+            def hook(name):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, phase_hook=hook, **kwargs)
+            phases.append({"rollout_seconds": marks[0] - t0, "update_seconds": marks[1] - marks[0]})
+            return out
+
+        return call
+
+    def on_save(args, _):
+        path, ts, gen_state = args
+        save_log.append({"path": pathlib.Path(path), "env_steps": ts.env_steps,
+                         "adam_step": adam_step(ts.optimizer), "generator": gen_state.clone()})
+
+    def on_restore(args, out):
+        ts, gen_state = out
+        restore_log.append({"env_steps": ts.env_steps, "adam_step": adam_step(ts.optimizer),
+                            "generator": gen_state.clone()})
+
+    common = ["--env", "joystick", "--task", CLI_TASK]
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        out = pathlib.Path(tmp) / "run"
+        stack.enter_context(wrapped(ppo, "training_step", training_step))
+        stack.enter_context(wrapped(ppo, "run_eval", timed(evals, lambda a, r: eval_metrics.append(r))))
+        stack.enter_context(wrapped(CKPT, "save_training_state", timed(saves, on_save)))
+        stack.enter_context(wrapped(CKPT, "restore_training_state", timed(restores, on_restore)))
+        stack.enter_context(wrapped(P.onnx_export, "export_policy", timed(exports)))
+        torch.cuda.synchronize()
+        P.MK.reset_launches()
+        t0 = time.perf_counter()
+        P.cli.main(common + ["-o", str(out), "--num_timesteps", str(CLI_STEPS),
+                             "--config_override", "num_evals=2"])
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        first = sorted(p for p in out.iterdir() if p.is_dir())
+        first_onnx = sorted(out.glob("*.onnx"))
+        last = max(first, key=lambda p: int(p.name.rsplit("_", 1)[1]))
+        t0 = time.perf_counter()
+        resumed = pathlib.Path(tmp) / "resumed"
+        _, (normalizer, net), final_metrics = P.cli.main(
+            common + ["-o", str(resumed), "--num_timesteps", str(2 * CLI_STEPS),
+                      "--restore_checkpoint_path", str(last), "--config_override", "num_evals=3"])
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        launches, kernel_launches = P.MK.launches, P.MK.kernel(spec).launches
+        launches_hfield = P.MK.launches_hfield
+        dirs = first + sorted(p for p in resumed.iterdir() if p.is_dir())
+        onnx_files = first_onnx + sorted(resumed.glob("*.onnx"))
+        stack.close()
+
+        # 128 observations from the eval, under the final policy
+        env = P.J.Joystick(CLI_TASK, device=dev)
+        ev = P.W.EvalEnv(env, cfg.episode_length)
+        egen = torch.Generator(device=dev).manual_seed(7)
+        state = ev.reset(env.reset_draws(egen, cfg.num_eval_envs))
+        final_policy = ppo.make_policy((normalizer, net), deterministic=True)
+        for _ in range(20):
+            state = ev.step(state, final_policy(state.obs)[0], ev.step_draws(egen, cfg.num_eval_envs))
+        obs = state.obs
+        onnx_err = {}
+        for f in onnx_files:
+            want = checkpoint_policy(P, f.with_suffix(""), obs, env.action_size, dev)(obs)[0]
+            got = P.onnx_runtime.OnnxPolicy(str(f)).infer(obs["state"].cpu().numpy())
+            onnx_err[f.name] = float(np.abs(got - want.cpu().numpy()).max())
+        last = max(dirs, key=lambda p: int(p.name.rsplit("_", 1)[1]))
+        final_err = float((checkpoint_policy(P, last, obs, env.action_size, dev)(obs)[0]
+                           - final_policy(obs)[0]).abs().max())
+
+    n_evals = len(evals)
+    eval_steps = cfg.episode_length // cfg.action_repeat
+    want_launches = (n_evals * eval_steps + len(phases) * cfg.k_unrolls * cfg.unroll_length) * cfg.action_repeat
+    first_saves, second = save_log[:2], save_log[2:]
+    resume = {
+        "restored_env_steps": restore_log[0]["env_steps"] if restore_log else None,
+        "restored_adam_step": restore_log[0]["adam_step"] if restore_log else None,
+        "resumed_saves": [{"env_steps": s["env_steps"], "adam_step": s["adam_step"]} for s in second],
+    }
+    sgd_steps = cfg.num_updates_per_batch * cfg.num_minibatches
+    failures = []
+    if n_evals != 4 or len(phases) != 2:
+        failures.append(f"{n_evals} evals and {len(phases)} training steps, want 4 and 2")
+    if [s["env_steps"] for s in first_saves] != [0, CLI_STEPS]:
+        failures.append("first run: checkpoints not at 0 and one training step")
+    if len(first) != 2 or len(first_onnx) != 2 or len(dirs) != 4 or len(onnx_files) != 4:
+        failures.append(f"checkpoints {len(first)} then {len(dirs)}, onnx {len(first_onnx)} then {len(onnx_files)}")
+    if not (len(restore_log) == 1 and restore_log[0]["env_steps"] == CLI_STEPS
+            and restore_log[0]["adam_step"] == sgd_steps):
+        failures.append(f"restore: {resume}")
+    if [(s["env_steps"], s["adam_step"]) for s in second] != [(CLI_STEPS, sgd_steps), (2 * CLI_STEPS, 2 * sgd_steps)]:
+        failures.append(f"resumed run: {resume}")
+    elif not (torch.equal(second[0]["generator"], restore_log[0]["generator"])
+              and torch.equal(restore_log[0]["generator"], first_saves[1]["generator"])):
+        failures.append("the generator state was not restored")
+    if max(onnx_err.values()) >= ONNX_TOLERANCE or final_err > 1e-6:
+        failures.append(f"onnx {onnx_err}, last checkpoint vs returned net {final_err}")
+    finite = all(np.isfinite(v) for m in eval_metrics for v in m.values()) and all(
+        np.isfinite(v) for v in final_metrics.values())
+    if not finite:
+        failures.append("non-finite metrics")
+    if launches != want_launches or kernel_launches != launches or launches_hfield != 0:
+        failures.append(f"{launches} launches ({kernel_launches} of the {CLI_TASK} build), want {want_launches}")
+    emit({"phase": "cli", "task": CLI_TASK, "envs": cfg.num_envs, "eval_envs": cfg.num_eval_envs,
+          "eval_control_steps": eval_steps, "runs_seconds": runs, "evals": n_evals,
+          "seconds_per_eval": evals, "ms_per_eval_control_step": [1e3 * t / eval_steps for t in evals],
+          "training_steps": phases, "checkpoint_save_seconds": saves,
+          "checkpoint_restore_seconds": restores, "onnx_export_seconds": exports,
+          "kernel_launches": launches, "expected_launches": want_launches,
+          "checkpoints": [p.name for p in dirs], "onnx_max_abs_err": onnx_err,
+          "onnx_tolerance": ONNX_TOLERANCE, "resume": resume,
+          "eval_reward": [m["eval/episode_reward"] for m in eval_metrics],
+          "eval_episode_length": [m["eval/avg_episode_length"] for m in eval_metrics],
+          "final_training_metrics": final_metrics, "ok": not failures, "card": smi})
+    if failures:
+        raise SystemExit(f"cli failed: {failures}")
+    return launches
+
+
+def standing_phase(P, gen, smi) -> int:
+    """One full-width training step of the standing task on flat_terrain;
+    returns the flat_terrain build's launches."""
+    dev = gen.device
+    ppo = P.ppo
+    cfg = P.cfg.PPOConfig(num_evals=1)
+    env = P.S.Standing("flat_terrain", device=dev)
+    train_env = P.W.TrainingEnv(env, cfg.episode_length,
+                                dr_draws=P.R.DRDraws.sample(gen, cfg.num_envs, env.model.spec))
+    state = train_env.reset(env.reset_draws(gen, cfg.num_envs))
+    ts = ppo.init_training_state(state.obs, env.action_size, cfg, gen, device=dev)
+    marks = []
+
+    def hook(name):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    P.MK.reset_launches()
+    t0 = time.perf_counter()
+    ts, state, metrics = ppo.training_step(ts, train_env, env, state, cfg, gen, phase_hook=hook)
+    launches = P.MK.launches
+    kernel_launches = P.MK.kernel(env.model.spec).launches
+    sizes = {k: int(v.shape[-1]) for k, v in state.obs.items()}
+    net_in = {cfg.policy_obs_key: ts.net.policy.sizes[0], cfg.value_obs_key: ts.net.value_mlp.sizes[0]}
+    metrics = {k: float(v) for k, v in metrics.items()}
+    finite = all(np.isfinite(v) for v in metrics.values()) and all(
+        torch.isfinite(v).all().item() for v in state.obs.values())
+    control_steps = cfg.k_unrolls * cfg.unroll_length
+    ok = (launches == kernel_launches == control_steps and P.MK.launches_hfield == 0 and finite
+          and net_in == sizes and ts.env_steps == cfg.steps_per_training_step)
+    emit({"phase": "standing", "task": "flat_terrain", "envs": cfg.num_envs,
+          "rollout_seconds": marks[0] - t0, "update_seconds": marks[1] - marks[0],
+          "kernel_launches": launches, "flat_terrain_kernel_launches": kernel_launches,
+          "obs_sizes": sizes, "network_inputs": net_in, "metrics": metrics, "finite": finite,
+          "ok": ok, "card": smi})
+    if not ok:
+        raise SystemExit(f"standing failed: {launches} launches ({kernel_launches} of the flat_terrain "
+                         f"build) for {control_steps} control steps, finite {finite}, obs {sizes}, "
+                         f"network inputs {net_in}")
+    return kernel_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -619,8 +872,11 @@ def main() -> int:
     flat = P.loader.load_model(device=dev, dtype=torch.float32, timestep=0.002)
     rough = P.loader.load_model("scene_rough_terrain_backlash", device=dev, dtype=torch.float32,
                                 timestep=0.002)
+    flat_nb = P.loader.load_model("scene_flat_terrain", device=dev, dtype=torch.float32,
+                                  timestep=0.002)
     build_phase(P, {"megakernel_step": (flat, False), "megakernel_step_hfield": (rough, False),
-                    "megakernel_step_dense": (flat, True)})
+                    "megakernel_step_dense": (flat, True),
+                    "megakernel_step_flat_terrain": (flat_nb, False)})
 
     gen = torch.Generator(device=dev).manual_seed(0)
     row_flat = kernel_phase(P, "megakernel_step", flat, gen, P.MK.TPU_KERNEL, timing_reps=10)
@@ -628,11 +884,21 @@ def main() -> int:
                               timing_reps=10)
     row_dense = kernel_phase(P, "megakernel_step_dense", flat, gen, P.MK.TPU_KERNEL_DENSE,
                              timing_reps=10, dense=True, n_envs=N_ENVS_DENSE)
+    row_nb = kernel_phase(P, "megakernel_step_flat_terrain", flat_nb, gen, P.MK.TPU_KERNEL,
+                          timing_reps=10)
+    # the evaluator's shape: 128 envs on the nominal model (per-env fields expanded)
+    at_eval = kernel_phase(P, "megakernel_step", flat, gen, P.MK.TPU_KERNEL, timing_reps=50,
+                           n_envs=P.cfg.PPOConfig().num_eval_envs, randomize=False)
+    row_flat["at_eval_shape"] = {k: at_eval[k] for k in ("envs", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                         "edge_env_substeps", "qpos_p90", "qvel_p90")}
     row_flat["launches"] = rollout_phase(P, gen, smi, steps=5)
     row_probe = probe_phase(P, gen, smi)
     row_hfield["launches"] = ppo_phase(P, gen, smi)
+    row_flat["launches_cli"] = cli_phase(P, gen, smi, flat.spec)
+    row_nb["launches"] = standing_phase(P, gen, smi)
 
-    emit({"kernels": [row_flat, row_hfield, row_dense, row_probe], "seconds_total": time.perf_counter() - t_start})
+    emit({"kernels": [row_flat, row_hfield, row_dense, row_nb, row_probe],
+          "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

@@ -6,6 +6,8 @@ snapshot (`models/data/`), not from C-MuJoCo name lookups.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Mapping, Optional
 
 import torch
 
@@ -14,6 +16,7 @@ from open_duck_playground_torch.physics import forward as F
 from open_duck_playground_torch.physics.types import Data, Model
 
 TASKS = {
+    "flat_terrain": "scene_flat_terrain",
     "flat_terrain_backlash": "scene_flat_terrain_backlash",
     "rough_terrain_backlash": "scene_rough_terrain_backlash",
     "rough_terrain": "scene_rough_terrain",
@@ -38,11 +41,71 @@ def task_to_scene(task: str) -> str:
     return TASKS[task]
 
 
+def override_config(config, overrides: Optional[Mapping[str, Any]]):
+    """A copy of the frozen config dataclass `config` with the dotted keys of
+    `overrides` replaced (`reward_config.scales.tracking_lin_vel=4.0`,
+    `push_config.magnitude_range=[0.1, 0.5]`), by the rules of
+    `ConfigDict.update_from_flattened_dict` on a locked config: an unknown
+    key raises KeyError, a value that cannot take the field's type raises
+    TypeError (an int may stand for a float). A key of an option the port
+    does not have yet (the config's `UNPORTED`) raises NotImplementedError."""
+    for key, value in (overrides or {}).items():
+        path = key.split(".")
+        if path[0] in getattr(config, "UNPORTED", ()):
+            raise NotImplementedError(f"config option {path[0]!r} is not ported yet")
+        config = _replace_path(config, path, value, key)
+    return config
+
+
+def _replace_path(node, path, value, key):
+    name, rest = path[0], path[1:]
+    if isinstance(node, Mapping):
+        names = set(node)
+    elif dataclasses.is_dataclass(node):
+        names = {f.name for f in dataclasses.fields(node)}
+    else:
+        names = set()
+    if name not in names:
+        raise KeyError(f"config key {key!r} does not exist (have {sorted(names)} at {name!r})")
+    old = node[name] if isinstance(node, Mapping) else getattr(node, name)
+    new = _replace_path(old, rest, value, key) if rest else _cast(old, value, key)
+    if isinstance(node, Mapping):
+        return {**node, name: new}
+    return dataclasses.replace(node, **{name: new})
+
+
+def _cast(old, value, key):
+    def bad():
+        return TypeError(f"config key {key!r}: {value!r} cannot take the type of {old!r}")
+
+    if isinstance(old, bool):
+        if not isinstance(value, bool):
+            raise bad()
+        return value
+    if isinstance(old, (int, float)):
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            raise bad()
+        if isinstance(old, int) and not isinstance(value, int):
+            raise bad()
+        return type(old)(value)
+    if isinstance(old, tuple):
+        if not isinstance(value, (list, tuple)):
+            raise bad()
+        if len(value) == len(old):
+            return tuple(_cast(o, v, key) for o, v in zip(old, value))
+        return tuple(value)
+    if isinstance(old, str) and isinstance(value, str):
+        return value
+    raise bad()
+
+
 class DuckEnv:
     """Holds the model and index tables; reset/step live in subclasses."""
 
-    def __init__(self, scene: str, config, device="cuda", dtype=torch.float32):
-        self._config = config
+    def __init__(self, scene: str, config, config_overrides: Optional[Mapping[str, Any]] = None,
+                 device="cuda", dtype=torch.float32):
+        self._config = override_config(config, config_overrides)
+        config = self._config
         self.device = torch.device(device)
         if self.device.type == "cuda":
             F.pin_f32()

@@ -12,12 +12,18 @@ test hands both envs the same numbers). Each has a `sample(generator,
 batch, env)` constructor. The draw the reference makes for the IMU delay
 index is not carried: its result is discarded in the reference's
 observation (`del noisy_gravity`).
+
+The class flags (`use_imitation`, `use_motor_speed_limits`,
+`obs_has_motor_targets`, `obs_has_imitation_phase`) are the JAX class's;
+`envs/standing.py` turns them off. Not ported yet, and a config override
+of either raises: reference-state init (`rsi_prob`) and direct head
+targets (`head_direct_targets`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Any, ClassVar, Dict, Mapping, Optional, Tuple
 
 import math
 
@@ -40,6 +46,7 @@ class NoiseScales:
     ankle_pos: float = 0.08
     joint_vel: float = 2.5
     gravity: float = 0.1
+    linvel: float = 0.1  # read by nothing, as in the reference
     gyro: float = 0.1
     accelerometer: float = 0.05
 
@@ -49,6 +56,7 @@ class NoiseConfig:
     level: float = 1.0
     action_min_delay: int = 0  # env steps
     action_max_delay: int = 3
+    imu_min_delay: int = 0  # the delayed IMU reading is discarded, as in the reference
     imu_max_delay: int = 3  # IMU history length
     scales: NoiseScales = field(default_factory=NoiseScales)
 
@@ -83,15 +91,22 @@ class PushConfig:
 
 @dataclass(frozen=True)
 class JoystickConfig:
-    """The reference's default_config, the fields of the paths this
-    package ports (imitation on, no reference-state init, no direct head
-    targets)."""
+    """The reference's default_config. `episode_length`, `action_repeat`,
+    `history_len` and `soft_joint_pos_limit_factor` are read by nothing
+    here, as in the reference (the trainer has its own)."""
+
+    UNPORTED: ClassVar[Tuple[str, ...]] = ("rsi_prob", "head_direct_targets")
 
     ctrl_dt: float = 0.02
     sim_dt: float = 0.002
+    episode_length: int = 1000
+    action_repeat: int = 1
     action_scale: float = 0.25
+    use_imitation: bool = True
     reset_joint_scale_range: Tuple[float, float] = (0.5, 1.5)
     dof_vel_scale: float = 0.05
+    history_len: int = 0
+    soft_joint_pos_limit_factor: float = 0.95
     max_motor_velocity: float = 5.24  # rad/s
     noise_config: NoiseConfig = field(default_factory=NoiseConfig)
     reward_config: RewardConfig = field(default_factory=RewardConfig)
@@ -111,12 +126,15 @@ def _u(gen, shape, lo, hi):
     return lo + torch.rand(shape, generator=gen, device=gen.device) * (hi - lo)
 
 
+def head_ranges(cfg):
+    f = cfg.head_range_factor
+    return [(lo * f, hi * f) for lo, hi in (cfg.neck_pitch_range, cfg.head_pitch_range,
+                                           cfg.head_yaw_range, cfg.head_roll_range)]
+
+
 def sample_command(gen: torch.Generator, batch: int, cfg: JoystickConfig) -> torch.Tensor:
     """(B, 7): 3 locomotion + 4 head dims, all zero with probability 0.1."""
-    f = cfg.head_range_factor
-    ranges = [cfg.lin_vel_x, cfg.lin_vel_y, cfg.ang_vel_yaw]
-    ranges += [(lo * f, hi * f) for lo, hi in (cfg.neck_pitch_range, cfg.head_pitch_range,
-                                              cfg.head_yaw_range, cfg.head_roll_range)]
+    ranges = [cfg.lin_vel_x, cfg.lin_vel_y, cfg.ang_vel_yaw] + head_ranges(cfg)
     cmd = torch.stack([_u(gen, (batch,), lo, hi) for lo, hi in ranges], -1)
     zero = torch.rand((batch,), generator=gen, device=gen.device) < 0.1
     return torch.where(zero[:, None], torch.zeros_like(cmd), cmd)
@@ -158,9 +176,9 @@ class ResetDraws:
         return cls(
             base_dxy=_u(gen, (batch, 2), -0.05, 0.05),
             yaw=_u(gen, (batch,), -3.14, 3.14),
-            joint_scale=_u(gen, (batch, nu), *cfg.reset_joint_scale_range),
+            joint_scale=_u(gen, (batch, nu), *env.reset_joint_scale_range),
             base_vel=_u(gen, (batch, 6), -0.05, 0.05),
-            command=sample_command(gen, batch, cfg),
+            command=env.sample_command(gen, batch),
             push_interval=_u(gen, (batch,), *cfg.push_config.interval_range),
             obs=ObsNoise.sample(gen, batch, nu),
         )
@@ -184,7 +202,7 @@ class StepDraws:
             push_theta=_u(gen, (batch,), 0.0, 2 * math.pi),
             push_magnitude=_u(gen, (batch,), *cfg.push_config.magnitude_range),
             obs=ObsNoise.sample(gen, batch, nu),
-            command=sample_command(gen, batch, cfg),
+            command=env.sample_command(gen, batch),
         )
 
 
@@ -192,10 +210,18 @@ class StepDraws:
 class Joystick(DuckEnv):
     """Track a joystick command (3 locomotion + 4 head dims)."""
 
-    def __init__(self, task: str = "flat_terrain_backlash",
-                 config: Optional[JoystickConfig] = None, device="cuda"):
-        config = config or JoystickConfig()
-        super().__init__(duck_base.task_to_scene(task), config, device=device)
+    use_imitation = True
+    use_motor_speed_limits = True
+    obs_has_motor_targets = True
+    obs_has_imitation_phase = True
+
+    def __init__(self, task: str = "flat_terrain", config=None,
+                 config_overrides: Optional[Mapping[str, Any]] = None, device="cuda"):
+        super().__init__(duck_base.task_to_scene(task), config or self.default_config(),
+                         config_overrides, device=device)
+        config = self._config
+        if hasattr(config, "use_imitation"):
+            self.use_imitation = bool(config.use_imitation)
         m = self._model
         dev = self.device
         self._init_q = m.key_qpos.clone()
@@ -207,7 +233,7 @@ class Joystick(DuckEnv):
             # a few frames under the position servos)
             self._init_q[2] += float(m.hfield_size[2]) + 0.002
         self._default_actuator = m.key_ctrl.clone()
-        self.gait = GaitOracle(device=dev)
+        self.gait = GaitOracle(device=dev) if self.use_imitation else None
         scale = torch.zeros(m.spec.nu)
         nc = config.noise_config.scales
         for i, name in enumerate(duck_base.JOINTS_ORDER_NO_HEAD):
@@ -223,9 +249,20 @@ class Joystick(DuckEnv):
             for k, v in config.reward_config.scales.items() if v != 0
         ] + ["swing_peak", "tracking_err/lin_vel", "tracking_err/ang_vel", "tracking_err/head"]
 
+    @staticmethod
+    def default_config():
+        return JoystickConfig()
+
     @property
-    def config(self) -> JoystickConfig:
+    def config(self):
         return self._config
+
+    @property
+    def reset_joint_scale_range(self) -> Tuple[float, float]:
+        return getattr(self._config, "reset_joint_scale_range", (0.5, 1.5))
+
+    def sample_command(self, gen: torch.Generator, batch: int) -> torch.Tensor:
+        return sample_command(gen, batch, self._config)
 
     def reset_draws(self, gen: torch.Generator, batch: int) -> ResetDraws:
         return ResetDraws.sample(gen, batch, self)
@@ -256,8 +293,11 @@ class Joystick(DuckEnv):
         push_interval_steps = torch.round(draws.push_interval / self.dt).to(torch.int32)
 
         i0 = torch.zeros(B, dtype=torch.int32, device=dev)
-        ref = self.gait.reference_frame(cmd[:, 0], cmd[:, 1], cmd[:, 2], i0)
         z = lambda *shape: torch.zeros((B,) + shape, **f32)
+        if self.use_imitation:
+            ref = self.gait.reference_frame(cmd[:, 0], cmd[:, 1], cmd[:, 2], i0)
+        else:
+            ref = z(0)
         info = {
             "step": torch.zeros(B, dtype=torch.int32, device=dev),
             "command": cmd,
@@ -275,8 +315,9 @@ class Joystick(DuckEnv):
             "imu_history": z(cfg.noise_config.imu_max_delay * 3),
             "imitation_i": i0,
             "current_reference_motion": ref,
-            "imitation_phase": z(2),
         }
+        if self.obs_has_imitation_phase:
+            info["imitation_phase"] = z(2)
         metrics = {k: z() for k in self._metric_keys}
         contact = C.feet_contact_flags(model, data.contact_dist)
         obs = self._get_obs(data, info, contact, draws.obs)
@@ -291,14 +332,18 @@ class Joystick(DuckEnv):
         info = dict(state.info)
         B, nu = action.shape
 
-        n = self.gait.nb_steps_in_period
-        imitation_i = torch.remainder(info["imitation_i"] + 1, n)
-        info["imitation_i"] = imitation_i
-        ph = imitation_i / n * 2 * math.pi
-        info["imitation_phase"] = torch.stack([torch.cos(ph), torch.sin(ph)], -1)
-        cmd = info["command"]
-        info["current_reference_motion"] = self.gait.reference_frame(
-            cmd[:, 0], cmd[:, 1], cmd[:, 2], imitation_i)
+        if self.use_imitation:
+            n = self.gait.nb_steps_in_period
+            imitation_i = torch.remainder(info["imitation_i"] + 1, n)
+            info["imitation_i"] = imitation_i
+            if self.obs_has_imitation_phase:
+                ph = imitation_i / n * 2 * math.pi
+                info["imitation_phase"] = torch.stack([torch.cos(ph), torch.sin(ph)], -1)
+            cmd = info["command"]
+            info["current_reference_motion"] = self.gait.reference_frame(
+                cmd[:, 0], cmd[:, 1], cmd[:, 2], imitation_i)
+        else:
+            info["imitation_i"] = torch.zeros_like(info["imitation_i"])
 
         # action delay buffer
         hist = torch.roll(info["action_history"], nu, dims=-1)
@@ -318,9 +363,10 @@ class Joystick(DuckEnv):
         data = state.data.replace(qvel=qvel)
 
         motor_targets = self._default_actuator + action_delayed * cfg.action_scale
-        prev = info["motor_targets"]
-        lim = cfg.max_motor_velocity * self.dt
-        motor_targets = torch.clamp(motor_targets, prev - lim, prev + lim)
+        if self.use_motor_speed_limits:
+            prev = info["motor_targets"]
+            lim = cfg.max_motor_velocity * self.dt
+            motor_targets = torch.clamp(motor_targets, prev - lim, prev + lim)
 
         data = F.step(model, data, motor_targets, self.n_substeps)
         info["motor_targets"] = motor_targets
@@ -403,45 +449,44 @@ class Joystick(DuckEnv):
         linvel = self.get_local_linvel(data)
         contact_f = contact.to(torch.float32)
 
-        state = torch.cat(
-            [
-                noisy_gyro,
-                noisy_accel,
-                info["command"],
-                noisy_joint_angles - self._default_actuator,
-                noisy_joint_vel * cfg.dof_vel_scale,
-                info["last_act"],
-                info["last_last_act"],
-                info["last_last_last_act"],
-                info["motor_targets"],
-                contact_f,
-                info["imitation_phase"],
-            ],
-            -1,
-        )
+        parts = [
+            noisy_gyro,
+            noisy_accel,
+            info["command"],
+            noisy_joint_angles - self._default_actuator,
+            noisy_joint_vel * cfg.dof_vel_scale,
+            info["last_act"],
+            info["last_last_act"],
+            info["last_last_last_act"],
+        ]
+        if self.obs_has_motor_targets:
+            parts.append(info["motor_targets"])
+        parts.append(contact_f)
+        if self.obs_has_imitation_phase:
+            parts.append(info["imitation_phase"])
+        else:
+            parts.append(info["current_reference_motion"])
+        state = torch.cat(parts, -1)
         a = self._floating_base_qpos_addr
-        privileged = torch.cat(
-            [
-                state,
-                gyro,
-                accelerometer,
-                gravity,
-                linvel,
-                self.get_global_angvel(data),
-                joint_angles - self._default_actuator,
-                joint_vel,
-                data.qpos[:, a + 2 : a + 3],
-                data.actuator_force,
-                contact_f,
-                data.sensordata[:, self._foot_linvel_sensor_adr],
-                info["feet_air_time"],
-                info["current_reference_motion"],
-                info["imitation_i"].to(torch.float32)[:, None],
-                info["imitation_phase"],
-            ],
-            -1,
-        )
-        return {"state": state, "privileged_state": privileged}
+        priv = [
+            state,
+            gyro,
+            accelerometer,
+            gravity,
+            linvel,
+            self.get_global_angvel(data),
+            joint_angles - self._default_actuator,
+            joint_vel,
+            data.qpos[:, a + 2 : a + 3],
+            data.actuator_force,
+            contact_f,
+            data.sensordata[:, self._foot_linvel_sensor_adr],
+            info["feet_air_time"],
+            info["current_reference_motion"],
+        ]
+        if self.obs_has_imitation_phase:
+            priv += [info["imitation_i"].to(torch.float32)[:, None], info["imitation_phase"]]
+        return {"state": state, "privileged_state": torch.cat(priv, -1)}
 
     # ---------------------------------------------------------- rewards
     def _get_reward(self, data, action, info, done, first_contact, contact):
@@ -453,16 +498,19 @@ class Joystick(DuckEnv):
         local_vel = self.get_local_linvel(data)
         gyro = self.get_gyro(data)
         cmd = info["command"]
+        if self.use_imitation:
+            imitation_r = imitation.imitation_reward(
+                self.get_floating_base_qvel(data.qvel), jq, jv, contact,
+                info["current_reference_motion"], cmd)
+        else:
+            imitation_r = torch.zeros_like(cmd[:, 0])
         return {
             "tracking_lin_vel": R.tracking_lin_vel(cmd, local_vel, sigma),
             "tracking_ang_vel": R.tracking_ang_vel(cmd, gyro, sigma),
             "torques": R.torques(data.actuator_force),
             "action_rate": R.action_rate(action, info["last_act"]),
             "alive": R.alive(action.shape[0], action.device),
-            "imitation": imitation.imitation_reward(
-                self.get_floating_base_qvel(data.qvel), jq, jv, contact,
-                info["current_reference_motion"], cmd,
-            ),
+            "imitation": imitation_r,
             "stand_still": R.stand_still(cmd, jq, jv, self._default_actuator),
             "progress": R.forward_progress(cmd, local_vel),
             "yaw_rate_l1": R.yaw_rate_l1(cmd, gyro),

@@ -1,6 +1,7 @@
-"""Reward and cost terms of the joystick task, batched over envs (leading
-axis). Counterpart of the terms of `open_duck_playground_tpu/envs/rewards.py`
-that the joystick task uses; all are NaN-guarded like the reference."""
+"""Reward and cost terms of the joystick and standing tasks, batched over
+envs (leading axis). Counterpart of the terms of
+`open_duck_playground_tpu/envs/rewards.py` that the two tasks use; all are
+NaN-guarded like the reference."""
 
 from __future__ import annotations
 
@@ -57,10 +58,33 @@ def alive(batch: int, device=None):
     return torch.ones(batch, dtype=torch.float32, device=device)
 
 
-def stand_still(cmd, joints_qpos, joints_qvel, default_pose):
-    """L1 pose + velocity deviation of every joint, gated to near-zero
-    commands (the joystick task counts the head too)."""
+def orientation(torso_zaxis):
+    """Squared tilt of the up-vector."""
+    return _nn(torch.sum(torch.square(torso_zaxis[..., :2]), -1))
+
+
+_LEGS = [0, 1, 2, 3, 4, 9, 10, 11, 12, 13]  # 5 left leg, 4 head, 5 right leg
+
+
+def stand_still(cmd, joints_qpos, joints_qvel, default_pose, ignore_head=False):
+    """L1 pose + velocity deviation, gated to near-zero commands. With
+    `ignore_head` only the two 5-dof legs count."""
     cmd_norm = torch.linalg.vector_norm(cmd[..., :3], dim=-1)
+    if ignore_head:
+        joints_qpos, joints_qvel = joints_qpos[..., _LEGS], joints_qvel[..., _LEGS]
+        default_pose = default_pose[..., _LEGS]
     pose = torch.sum(torch.abs(joints_qpos - default_pose), -1)
     vel = torch.sum(torch.abs(joints_qvel), -1)
     return _nn(pose + vel) * (cmd_norm < 0.01)
+
+
+def head_pos(joints_qpos, joints_qvel, cmd, ungated: bool = False):
+    """Squared head-joint error (slots 5:9) against the 4 head commands.
+    Gated by default to moving commands, as the reference is: the standing
+    task samples no locomotion, so there the gated cost is always zero (a
+    parity quirk kept on purpose); `ungated` drops the gate."""
+    del joints_qvel
+    err = _nn(torch.sum(torch.square(joints_qpos[..., 5:9] - cmd[..., 3:]), -1))
+    if ungated:
+        return err
+    return err * (torch.linalg.vector_norm(cmd[..., :3], dim=-1) > 0.01)

@@ -1,7 +1,8 @@
-"""Training wrapper: episode truncation, autoreset to the cached reset state,
-per-env domain-randomized model, NaN quarantine. Counterpart of
-`open_duck_playground_tpu/envs/wrappers.py:TrainingEnv`; the env batch is
-the leading axis of every tensor instead of a vmap.
+"""Training wrappers: episode truncation, action repeat, autoreset to the
+cached reset state, per-env domain-randomized model, NaN quarantine, and the
+evaluator's per-episode sums. Counterpart of
+`open_duck_playground_tpu/envs/wrappers.py` (`TrainingEnv`, `EvalEnv`); the
+env batch is the leading axis of every tensor instead of a vmap.
 """
 
 from __future__ import annotations
@@ -51,12 +52,31 @@ class TrainingEnv:
     """reset(draws) -> batched State; step(state, action, draws) -> State.
 
     With `dr_draws` the env runs on a model whose randomized fields carry
-    one value per env."""
+    one value per env. With `action_repeat` n > 1 one step runs the env n
+    times on the same action, and `draws` is a sequence of n sets of step
+    draws (`step_draws` makes them); the reward is the last repeat's, as in
+    the reference."""
 
-    def __init__(self, env, episode_length: int, dr_draws: Optional[DRDraws] = None):
+    def __init__(self, env, episode_length: int, dr_draws: Optional[DRDraws] = None,
+                 action_repeat: int = 1):
         self._env = env
         self._episode_length = episode_length
+        self._action_repeat = action_repeat
         self._model = domain_randomize(env.model, dr_draws) if dr_draws is not None else env.model
+
+    @property
+    def env(self):
+        return self._env
+
+    @property
+    def action_size(self) -> int:
+        return self._env.action_size
+
+    def step_draws(self, gen: torch.Generator, batch: int):
+        """The env's step draws, or a list of `action_repeat` of them."""
+        if self._action_repeat == 1:
+            return self._env.step_draws(gen, batch)
+        return [self._env.step_draws(gen, batch) for _ in range(self._action_repeat)]
 
     def reset(self, draws) -> State:
         state = self._env.reset(draws, model=self._model)
@@ -86,7 +106,12 @@ class TrainingEnv:
         steps_prev = torch.where(done_prev, torch.zeros_like(steps_prev), steps_prev)
         state = state.replace(data=data, obs=obs, info=info)
 
-        nstate = self._env.step(state, action, draws, model=self._model)
+        repeats = [draws] if self._action_repeat == 1 else draws
+        if len(repeats) != self._action_repeat:
+            raise ValueError(f"{len(repeats)} sets of step draws for action_repeat {self._action_repeat}")
+        nstate = state
+        for d in repeats:
+            nstate = self._env.step(nstate, action, d, model=self._model)
 
         # quarantine non-finite envs: cached reset state, zero reward, done
         bad = ~env_finite(nstate)
@@ -99,7 +124,7 @@ class TrainingEnv:
             metrics=_sanitize(bad, nstate.metrics),
         )
 
-        steps = steps_prev + 1
+        steps = steps_prev + self._action_repeat
         at_limit = steps >= self._episode_length
         done = torch.where(at_limit, torch.ones_like(nstate.done), nstate.done)
         truncation = at_limit * (1 - nstate.done)
@@ -110,3 +135,37 @@ class TrainingEnv:
         info["first_data"] = first_data
         info["first_obs"] = first_obs
         return nstate.replace(done=done, info=info)
+
+
+class EvalEnv(TrainingEnv):
+    """Adds the per-episode sums of the evaluator (brax EvalWrapper
+    semantics): reward, length and every env metric accumulate until an
+    env's first done, then freeze. They live in `info["eval_metrics"]`."""
+
+    def reset(self, draws) -> State:
+        state = super().reset(draws)
+        z = lambda: torch.zeros_like(state.reward)
+        info = dict(state.info)
+        info["eval_metrics"] = {
+            "episode_reward": z(),
+            "episode_length": z(),
+            "episode_done": z(),
+            "episode_metrics": {k: z() for k in state.metrics},
+        }
+        return state.replace(info=info)
+
+    def step(self, state: State, action: torch.Tensor, draws) -> State:
+        info = dict(state.info)
+        em = info.pop("eval_metrics")
+        nstate = super().step(state.replace(info=info), action, draws)
+        alive = 1.0 - em["episode_done"]
+        em = {
+            "episode_reward": em["episode_reward"] + alive * nstate.reward,
+            "episode_length": em["episode_length"] + alive,
+            "episode_done": torch.maximum(em["episode_done"], nstate.done),
+            "episode_metrics": {k: acc + alive * nstate.metrics[k]
+                                for k, acc in em["episode_metrics"].items()},
+        }
+        ninfo = dict(nstate.info)
+        ninfo["eval_metrics"] = em
+        return nstate.replace(info=ninfo)

@@ -15,6 +15,8 @@ import torch
 
 from open_duck_playground_torch.envs.env_types import State
 from open_duck_playground_torch.physics.types import Data
+from open_duck_playground_torch.train import ppo
+from open_duck_playground_torch.train.config import PPOConfig
 from open_duck_playground_torch.train.networks import MLP, PPONetworks
 from open_duck_playground_torch.train.running_stats import RunningStats
 
@@ -85,3 +87,59 @@ def state_from_jax(state_np: Any, device="cuda") -> State:
         metrics={k: _value(v, device) for k, v in _get(state_np, "metrics").items()},
         info=info,
     )
+
+
+def _adam_state(opt_state: Any):
+    """The optax ScaleByAdamState (count, mu, nu) inside the optimizer
+    state of the `clip_by_global_norm` -> `adam` chain, as a namedtuple or
+    as the nested lists and dicts an orbax restore without a target gives."""
+    if isinstance(opt_state, Mapping):
+        if {"count", "mu", "nu"} <= set(opt_state):
+            return opt_state
+        children = list(opt_state.values())
+    elif hasattr(opt_state, "_fields"):
+        if {"count", "mu", "nu"} <= set(opt_state._fields):
+            return opt_state
+        children = list(opt_state)
+    elif isinstance(opt_state, (list, tuple)):
+        children = list(opt_state)
+    else:
+        return None
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def training_state_from_jax(tree_np: Any, learning_rate: float = PPOConfig().learning_rate,
+                            device="cuda") -> "ppo.TrainingState":
+    """The port's TrainingState from the JAX trainer's full checkpoint
+    (`save_training_state`: normalizer, params, opt_state, env_steps,
+    epoch_key) read back as numpy. Adam's count, mu and nu become torch
+    Adam's per-parameter `step`, `exp_avg` and `exp_avg_sq` (kernels
+    transposed to the `(out, in)` weight layout), so a run trained with JAX
+    resumes here with its moments and bias correction. The epoch key is not
+    carried: threefry keys have no Philox counterpart."""
+    net = networks_from_jax(_get(tree_np, "params"), device)
+    optimizer = ppo.make_optimizer(net, learning_rate)
+    adam = _adam_state(_get(tree_np, "opt_state"))
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) in opt_state")
+    mu, nu = _get(adam, "mu"), _get(adam, "nu")
+    step = float(np.asarray(_get(adam, "count")))
+    for name, mlp in (("policy", net.policy), ("value", net.value_mlp)):
+        for i, layer in enumerate(mlp.layers):
+            for attr, leaf in (("weight", "kernel"), ("bias", "bias")):
+                pick = lambda tree: np.asarray(tree[name][f"hidden_{i}"][leaf], np.float32)
+                m, v = pick(mu), pick(nu)
+                if attr == "weight":
+                    m, v = m.T, v.T
+                optimizer.state[getattr(layer, attr)] = {
+                    "step": torch.tensor(step, dtype=torch.float32),
+                    "exp_avg": _tensor(m, device),
+                    "exp_avg_sq": _tensor(v, device),
+                }
+    return ppo.TrainingState(net=net, optimizer=optimizer,
+                             normalizer=normalizer_from_jax(_get(tree_np, "normalizer"), device),
+                             env_steps=int(np.asarray(_get(tree_np, "env_steps"))))

@@ -39,6 +39,7 @@ GAIT_PKL = ROBOT_DIR / "data" / "polynomial_coefficients.pkl"
 
 SCENES = (
     "scene_flat_terrain_backlash",
+    "scene_flat_terrain",
     "scene_rough_terrain_backlash",
     "scene_rough_terrain",
 )

@@ -74,7 +74,8 @@ SENSOR_KINDS = (
 
 # Kernel launches since the last reset; one per `megakernel_step` on a card.
 # `launches_hfield` counts those of them that ran the heightfield build,
-# `launches_dense` those on the degenerate partition.
+# `launches_dense` those on the degenerate partition; each built library
+# counts its own (`kernel(spec).launches`).
 launches = 0
 launches_hfield = 0
 launches_dense = 0
@@ -85,6 +86,8 @@ def reset_launches() -> None:
     launches = 0
     launches_hfield = 0
     launches_dense = 0
+    for k in _KERNELS.values():
+        k.launches = 0
 
 
 # ------------------------------------------------------------ model tables
@@ -563,6 +566,7 @@ class _Kernel:
 
     def __init__(self, dims: Dict[str, int], dense: bool = False, source: str = "megakernel.cu"):
         self.dims, self.dense = dims, dense
+        self.launches = 0
         built = cuda_build.build(source, [*dim_flags(dims), f"-I{CSRC}"], headers=("megakernel.cuh",))
         self.build_seconds, self.ptxas = built.build_seconds, built.ptxas_lines()
         lib = built.lib
@@ -653,6 +657,7 @@ def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int,
     if err:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     launches += 1
+    k.launches += 1
     launches_hfield += int(m.spec.floor_is_hfield)
     launches_dense += int(k.dims["NROOT"] == 0)
     return data_from_outputs(d, ctrl, outputs)

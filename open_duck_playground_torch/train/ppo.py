@@ -1,25 +1,29 @@
 """PPO trainer: rollout with the normalizer's moments accumulated in the
 loop, truncation-aware GAE, clipped surrogate loss, minibatched SGD, running
-obs normalization, asymmetric actor-critic. Counterpart of
-`open_duck_playground_tpu/train/ppo.py` (`training_step` and the `train`
-loop around it) in eager PyTorch with autograd: the update is small matrix
-products and elementwise code, which the JAX package also computes outside
-any hand-written kernel. The physics of every rollout step goes through
-`forward.step`, on the card the CUDA megakernel.
+obs normalization, asymmetric actor-critic, periodic evaluation, checkpoint
+restore and the per-eval hooks. Counterpart of
+`open_duck_playground_tpu/train/ppo.py` in eager PyTorch with autograd: the
+update is small matrix products and elementwise code, which the JAX package
+also computes outside any hand-written kernel. The physics of every env
+step (rollout and evaluation) goes through `forward.step`, on the card the
+CUDA megakernel.
 
 Random numbers are drawn up front from an explicit `torch.Generator`
 (`unroll_draws`, `sgd_draws`), or injected in the same form so a test can
-replay them.
+replay them. The evaluator has a generator of its own.
 
-Not ported yet, and `train` raises on a request for any of them: periodic
-evaluation (`num_evals > 1`, `eval_env`), the eval/hook pipelining
-(`policy_params_fn`), checkpoint restore, `bf16_matmuls`, a device mesh and
-`action_repeat > 1`.
+`train` keeps the JAX trainer's schedule: the same number of training steps
+per eval period, an initial eval when `num_evals > 1`, and the hooks called
+once per period with the period's mean metrics. It runs the hooks after the
+period instead of overlapping them with the next one. Not ported yet, and
+`train` raises on a request for them: `bf16_matmuls` and a device mesh.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import math
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
@@ -28,7 +32,8 @@ import torch
 
 from open_duck_playground_torch.envs.env_types import State
 from open_duck_playground_torch.envs.randomize import DRDraws
-from open_duck_playground_torch.envs.wrappers import TrainingEnv
+from open_duck_playground_torch.envs.wrappers import EvalEnv, TrainingEnv
+from open_duck_playground_torch.train import checkpoint as CKPT
 from open_duck_playground_torch.train import gae, networks as N, running_stats as RS
 from open_duck_playground_torch.train.config import PPOConfig
 
@@ -87,8 +92,42 @@ def init_training_state(obs: Dict[str, torch.Tensor], action_size: int, cfg: PPO
                          normalizer=RS.init(sizes, device=device))
 
 
+def host_copy(ts: TrainingState) -> TrainingState:
+    """A copy of `ts` on the CPU that later training steps cannot change
+    (the live network and Adam state are updated in place)."""
+    net = copy.deepcopy(ts.net).to("cpu")
+    optimizer = make_optimizer(net, ts.optimizer.param_groups[0]["lr"])
+    optimizer.load_state_dict(CKPT.to_host(ts.optimizer.state_dict()))
+    normalizer = RS.RunningStats(**{f: CKPT.to_host(getattr(ts.normalizer, f))
+                                    for f in ("count", "mean", "summed_var", "std")})
+    return TrainingState(net=net, optimizer=optimizer, normalizer=normalizer,
+                         env_steps=ts.env_steps)
+
+
+def make_policy(variables, deterministic: bool = False):
+    """The policy of `variables` = (normalizer, net): `policy(obs, noise)`
+    returns (action, extras). Deterministic: tanh of the mean, no extras.
+    Else a sample from standard-normal `noise` (batch, action_size), with
+    its `raw_action` and `log_prob`. Counterpart of what JAX's
+    `make_policy_factory(net)` returns; here the variables hold the
+    network itself."""
+    normalizer, net = variables
+
+    def policy(obs: Dict[str, torch.Tensor], noise: Optional[torch.Tensor] = None):
+        with torch.no_grad():
+            logits = net.policy_logits(RS.normalize(normalizer, obs))
+            if deterministic:
+                return N.deterministic_action(logits), {}
+            raw = N.sample_raw(logits, noise)
+            return N.postprocess(raw), {"raw_action": raw, "log_prob": N.log_prob(logits, raw)}
+
+    return policy
+
+
 # ---------------------------------------------------------------- rollout
 def unroll_draws(env, num_envs: int, length: int, generator: torch.Generator) -> UnrollDraws:
+    """`env` is the TrainingEnv (or a bare env when actions are not
+    repeated): its `step_draws` gives what one of its steps takes."""
     noise = torch.randn((length, num_envs, env.action_size), generator=generator,
                         device=generator.device)
     return UnrollDraws(action_noise=noise,
@@ -244,7 +283,7 @@ def training_step(ts: TrainingState, train_env: TrainingEnv, env, env_state: Sta
     times them synchronizes there)."""
     k, T = cfg.k_unrolls, cfg.unroll_length
     if unroll is None:
-        unroll = unroll_draws(env, cfg.num_envs, k * T, generator)
+        unroll = unroll_draws(train_env, cfg.num_envs, k * T, generator)
     env_state, data, final_obs, moments = generate_unroll(
         train_env, ts.net, ts.normalizer, env_state, unroll, accumulate=cfg.normalize_observations)
     if cfg.normalize_observations:
@@ -276,27 +315,75 @@ def training_step(ts: TrainingState, train_env: TrainingEnv, env, env_state: Sta
     return ts, env_state, out
 
 
+# ------------------------------------------------------------------- eval
+def run_eval(eval_env: EvalEnv, variables, num_envs: int, length: int, deterministic: bool,
+             generator: torch.Generator) -> Dict[str, float]:
+    """`num_envs` fresh episodes of `length` control steps under the policy
+    of `variables`, with `generator`'s random numbers. Returns the mean and
+    std episode reward, the mean length, the tracking errors as per-step
+    means and every other env metric as an episode sum (ppo.py:423-455 of
+    the JAX package)."""
+    policy = make_policy(variables, deterministic)
+    act = eval_env.action_size
+    dev = generator.device
+    with torch.no_grad():
+        state = eval_env.reset(eval_env.env.reset_draws(generator, num_envs))
+        for _ in range(length):
+            noise = None if deterministic else torch.randn((num_envs, act), generator=generator,
+                                                           device=dev)
+            action, _ = policy(state.obs, noise)
+            state = eval_env.step(state, action, eval_env.step_draws(generator, num_envs))
+        em = state.info["eval_metrics"]
+        out = {
+            "eval/episode_reward": em["episode_reward"].mean(),
+            "eval/episode_reward_std": em["episode_reward"].std(unbiased=False),
+            "eval/avg_episode_length": em["episode_length"].mean(),
+        }
+        ep_len = torch.clamp(em["episode_length"], min=1.0)
+        for k, v in em["episode_metrics"].items():
+            if k.startswith("tracking_err/"):
+                out["eval/" + k] = (v / ep_len).mean()
+            else:
+                out["eval/episode_" + k] = v.mean()
+    return {k: float(v) for k, v in out.items()}
+
+
+# --------------------------------------------------------------- schedule
+def schedule(num_timesteps: int, num_evals: int, steps_per_training_step: int,
+             max_env_steps_per_jit: Optional[int]):
+    """(n_chunks, chunk_steps): training steps per eval period in the JAX
+    trainer's arithmetic (ppo.py:460-474), which splits a period into equal
+    jitted chunks of at most `max_env_steps_per_jit` env steps. Here a chunk
+    is only a count; a period is n_chunks * chunk_steps training steps."""
+    num_evals_after_init = max(num_evals - 1, 1)
+    steps_per_epoch = int(math.ceil(num_timesteps / (num_evals_after_init * steps_per_training_step)))
+    if max_env_steps_per_jit is None:
+        n_chunks = 1
+    else:
+        max_ts = max(1, int(max_env_steps_per_jit) // steps_per_training_step)
+        n_chunks = max(1, int(math.ceil(steps_per_epoch / max_ts)))
+    return n_chunks, int(math.ceil(steps_per_epoch / n_chunks))
+
+
 # ------------------------------------------------------------------ train
 def train(environment, num_timesteps: Optional[int] = None, config: Optional[PPOConfig] = None,
           device="cuda", randomize: bool = True,
           progress_fn: Callable[[int, dict], None] = lambda *a: None,
-          eval_env=None, policy_params_fn=None, restore_checkpoint_path: Optional[str] = None,
-          mesh=None, **overrides):
-    """Train `environment` for `num_timesteps` env steps (rounded up to whole
-    training steps). `overrides` replace fields of `config`. `progress_fn`
-    gets (env steps, metrics) after every training step. Returns
-    ((normalizer, net), metrics) with the last step's `training/...`
-    metrics and `training/sps`."""
+          eval_env=None, policy_params_fn: Callable = lambda *a, **k: None,
+          restore_checkpoint_path: Optional[str] = None, mesh=None,
+          max_env_steps_per_jit: Optional[int] = 8_192_000, **overrides):
+    """Train `environment` for `num_timesteps` env steps. `overrides`
+    replace fields of `config`. Per eval period (and once before training
+    when `num_evals > 1`): `progress_fn(env_steps, metrics)` with the
+    period's mean `training/...` metrics, `training/sps` and, when there is
+    an evaluator, the `eval/...` metrics; then
+    `policy_params_fn(env_steps, make_policy, variables,
+    full_state=(training_state, generator_state))`, both on host copies
+    taken before the next period starts. Returns (make_policy,
+    (normalizer, net), metrics)."""
     cfg = dataclasses.replace(config or PPOConfig(), **overrides)
     num_timesteps = cfg.num_timesteps if num_timesteps is None else num_timesteps
-    unported = {
-        "periodic evaluation (num_evals > 1 or eval_env)": cfg.num_evals > 1 or eval_env is not None,
-        "policy_params_fn (eval/hook pipelining)": policy_params_fn is not None,
-        "restore_checkpoint_path": restore_checkpoint_path is not None,
-        "bf16_matmuls": cfg.bf16_matmuls,
-        "mesh": mesh is not None,
-        "action_repeat > 1": cfg.action_repeat != 1,
-    }
+    unported = {"bf16_matmuls": cfg.bf16_matmuls, "mesh": mesh is not None}
     asked = [name for name, on in unported.items() if on]
     if asked:
         raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
@@ -306,15 +393,47 @@ def train(environment, num_timesteps: Optional[int] = None, config: Optional[PPO
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     spec = environment.model.spec if environment.model is not None else None
     dr = DRDraws.sample(gen, cfg.num_envs, spec) if randomize and spec is not None else None
-    train_env = TrainingEnv(environment, cfg.episode_length, dr_draws=dr)
+    train_env = TrainingEnv(environment, cfg.episode_length, dr_draws=dr,
+                            action_repeat=cfg.action_repeat)
     env_state = train_env.reset(environment.reset_draws(gen, cfg.num_envs))
     ts = init_training_state(env_state.obs, environment.action_size, cfg, gen, device=dev)
+    if restore_checkpoint_path is not None:
+        ts, gen_state = CKPT.restore_training_state(restore_checkpoint_path, ts)
+        if gen_state is not None:
+            gen.set_state(gen_state)
 
+    evaluator = None
+    if cfg.num_evals > 1 or eval_env is not None:
+        # the nominal model: no domain randomization, as in the reference
+        ev_env = EvalEnv(eval_env or environment, cfg.episode_length,
+                         action_repeat=cfg.action_repeat)
+        eval_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1000)
+        evaluator = lambda variables: run_eval(
+            ev_env, variables, cfg.num_eval_envs, cfg.episode_length // cfg.action_repeat,
+            cfg.deterministic_eval, eval_gen)
+
+    def hooks(step: int, metrics: dict) -> None:
+        host = host_copy(ts)
+        variables = (host.normalizer, host.net)
+        if evaluator is not None:
+            metrics = {**metrics, **evaluator((ts.normalizer, ts.net))}
+        progress_fn(step, metrics)
+        policy_params_fn(step, make_policy, variables, full_state=(host, gen.get_state()))
+
+    n_chunks, chunk_steps = schedule(num_timesteps, cfg.num_evals, cfg.steps_per_training_step,
+                                     max_env_steps_per_jit)
     all_metrics: Dict[str, float] = {}
+    if cfg.num_evals > 1:
+        hooks(ts.env_steps, {})
     while ts.env_steps < num_timesteps:
         t0 = time.monotonic()
-        ts, env_state, metrics = training_step(ts, train_env, environment, env_state, cfg, gen)
-        all_metrics = {f"training/{k}": float(v) for k, v in metrics.items()}  # synchronizes
-        all_metrics["training/sps"] = cfg.steps_per_training_step / (time.monotonic() - t0)
-        progress_fn(ts.env_steps, all_metrics)
-    return (ts.normalizer, ts.net), all_metrics
+        collected: Dict[str, List[torch.Tensor]] = {}
+        for _ in range(n_chunks * chunk_steps):
+            ts, env_state, metrics = training_step(ts, train_env, environment, env_state, cfg, gen)
+            for k, v in metrics.items():
+                collected.setdefault(k, []).append(v)
+        all_metrics = {f"training/{k}": float(torch.stack(v).mean()) for k, v in collected.items()}
+        all_metrics["training/sps"] = (n_chunks * chunk_steps * cfg.steps_per_training_step
+                                       / (time.monotonic() - t0))
+        hooks(ts.env_steps, all_metrics)
+    return make_policy, (ts.normalizer, ts.net), all_metrics

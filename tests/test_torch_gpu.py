@@ -218,3 +218,37 @@ def test_training_step_runs_on_rough_terrain_through_the_kernel(cuda):
     assert all(torch.isfinite(v) for v in metrics.values())
     assert all(not torch.equal(a, b) for a, b in zip(before, ts.net.parameters()))
     assert float(ts.normalizer.count) == cfg.steps_per_training_step == ts.env_steps
+
+
+def test_eval_runs_through_the_kernel(cuda):
+    """`ppo.run_eval` (EvalEnv on the nominal model, 128 envs) on the card:
+    one plane-kernel launch per control step, finite metrics."""
+    from open_duck_playground_torch.envs.wrappers import EvalEnv
+    from open_duck_playground_torch.train import networks as N, running_stats as RS
+
+    env = Joystick("flat_terrain_backlash", device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    ev = EvalEnv(env, 1000)
+    sizes = {k: v.shape[-1] for k, v in ev.reset(env.reset_draws(gen, 2)).obs.items()}
+    net = N.PPONetworks.init(sizes, env.action_size, (32, 32), gen, device=cuda, value_hidden=(32,))
+    before = MK.kernel(env.model.spec).launches
+    metrics = ppo.run_eval(ev, (RS.init(sizes, device=cuda), net), 128, 30, False, gen)
+    assert MK.kernel(env.model.spec).launches - before == 30
+    assert all(np.isfinite(v) for v in metrics.values()) and 0 < metrics["eval/avg_episode_length"] <= 30
+
+
+def test_standing_step_runs_on_flat_terrain_through_the_kernel(cuda):
+    from open_duck_playground_torch.envs.standing import Standing
+
+    env = Standing("flat_terrain", device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    batch = 256
+    wrapped = TrainingEnv(env, 1000, dr_draws=DRDraws.sample(gen, batch, env.model.spec))
+    state = wrapped.reset(env.reset_draws(gen, batch))
+    before = MK.kernel(env.model.spec).launches
+    for _ in range(3):
+        action = 2 * torch.rand(batch, env.action_size, generator=gen, device=cuda) - 1
+        state = wrapped.step(state, action, env.step_draws(gen, batch))
+    torch.cuda.synchronize()
+    assert MK.kernel(env.model.spec).launches - before == 3 and MK.kernel_dims(env.model.spec)["NV"] == 20
+    assert all(torch.isfinite(v).all() for v in state.obs.values()) and torch.isfinite(state.reward).all()

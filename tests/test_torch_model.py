@@ -6,7 +6,7 @@ package, and the port's isolation from JAX.
 - The env index tables the port reads from the snapshot equal the ones the
   JAX env gets from C-MuJoCo name lookups.
 - A fresh run of the snapshot command reproduces the committed files.
-- No module of the port imports JAX or the JAX package.
+- No module of the port imports JAX, orbax, tensorboardX or the JAX package.
 """
 
 import dataclasses
@@ -104,8 +104,9 @@ def test_snapshot_command_reproduces_committed_files(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Import every module of the port in a fresh interpreter: neither JAX
-    nor the JAX package may load."""
+    """Import every module of the port in a fresh interpreter: neither JAX,
+    the JAX package, orbax nor tensorboardX (optional, imported by the CLI
+    only when it runs) may load."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in PORT.rglob("*.py")
@@ -115,7 +116,8 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'ml_collections', 'mujoco', 'open_duck_playground_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_collections', 'mujoco', 'tensorboardX', "
+        "'open_duck_playground_tpu'))\n"
         "assert not bad, bad\n"
         "print('ISOLATED', len(sys.argv))\n"
     )

@@ -1,13 +1,17 @@
 """The port's PPO update against the JAX package: the action distribution,
 the running normalizer, GAE, the loss and its gradients, one optimizer step,
-the minibatch gather, the k-unroll contract, and learning on a toy env.
+the minibatch gather, the k-unroll contract, learning on a toy env, the
+trainer's schedule of evals and hooks, and the eval and action-repeat
+wrappers.
 
 Inputs come from a numpy seed and go through both sides in float32. Stated
 tolerances: distribution, normalizer and GAE 1e-6 to 2e-6 (relative, with
 an absolute floor of the same size; the normalizer's summed variance 1e-5,
 see `_assert_stats`); loss terms 1e-5 relative; gradients 1e-4 of each tensor's
 largest entry; parameters after an optimizer step 1e-7 absolute (the
-updates themselves are 3e-4).
+updates themselves are 3e-4). The schedule's step counts and the wrappers'
+bookkeeping on a deterministic toy env are compared exactly (rewards to
+float32 rounding, 1e-6 relative).
 """
 
 import numpy as np
@@ -18,12 +22,16 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from open_duck_playground_tpu.envs import env_types as JET
+from open_duck_playground_tpu.envs import wrappers as JW
+from open_duck_playground_tpu.physics import types as JT
 from open_duck_playground_tpu.train import gae as JG
 from open_duck_playground_tpu.train import networks as JN
+from open_duck_playground_tpu.train import ppo as JPPO
 from open_duck_playground_tpu.train import running_stats as JRS
 
 from open_duck_playground_torch.envs.env_types import State
-from open_duck_playground_torch.envs.wrappers import TrainingEnv
+from open_duck_playground_torch.envs.wrappers import EvalEnv, TrainingEnv
 from open_duck_playground_torch.interop import networks_from_jax, normalizer_from_jax
 from open_duck_playground_torch.physics.types import Data
 from open_duck_playground_torch.train import gae as TG
@@ -302,13 +310,12 @@ def test_k_unroll_segments_match_jax_formulation():
 def test_config_contract_and_unported_requests():
     assert PPOConfig().k_unrolls == 1 and PPOConfig().steps_per_training_step == 8192 * 20
     assert PPOConfig(num_envs=16, batch_size=8, num_minibatches=4).k_unrolls == 2
+    assert PPOConfig(action_repeat=2).steps_per_training_step == 2 * 8192 * 20
     with pytest.raises(ValueError):
         PPOConfig(num_envs=16, batch_size=8, num_minibatches=3).k_unrolls
     with pytest.raises(ValueError):
         PPOConfig(num_envs=16, batch_size=4, num_minibatches=2).k_unrolls
-    for kw in (dict(num_evals=2), dict(num_evals=1, bf16_matmuls=True), dict(num_evals=1, action_repeat=2),
-               dict(num_evals=1, eval_env=PointEnv()), dict(num_evals=1, restore_checkpoint_path="x"),
-               dict(num_evals=1, mesh=object()), dict(num_evals=1, policy_params_fn=print)):
+    for kw in (dict(num_evals=2, bf16_matmuls=True), dict(num_evals=1, mesh=object())):
         with pytest.raises(NotImplementedError):
             ppo.train(PointEnv(), 10, device="cpu", **kw)
 
@@ -353,21 +360,31 @@ TOY = dict(num_envs=32, episode_length=50, unroll_length=10, num_minibatches=4, 
 
 
 def test_ppo_learns_toy_env():
-    """Same sizes as tests/test_train.py::test_ppo_learns_toy_env. The port
-    has no evaluator yet, so the measure is the rollout's mean reward per
-    step: a point that reaches the origin and stays earns ~0.9 a step, a
-    random walk from U(-1, 1)^2 about 0.2."""
-    seen = []
-    (normalizer, net), metrics = ppo.train(PointEnv(), 40_000, device="cpu",
-                                           progress_fn=lambda s, m: seen.append((s, m)), **TOY)
-    first = np.mean([m["training/reward_mean"] for _, m in seen[:5]])
-    last = np.mean([m["training/reward_mean"] for _, m in seen[-5:]])
-    assert last > first + 0.3 and last > 0.6, (first, last)
-    assert seen[-1][0] == 125 * 320 and float(normalizer.count) == 40_000
+    """Same sizes and measure as tests/test_train.py::test_ppo_learns_toy_env:
+    the eval episode reward (16 envs, 50 steps) of the last of 4 evals beats
+    the initial eval's by more than 10. A point that reaches the origin and
+    stays earns ~0.9 a step, a random walk from U(-1, 1)^2 about 0.2."""
+    rewards, seen = [], []
+
+    def progress(step, metrics):
+        seen.append(step)
+        if "eval/episode_reward" in metrics:
+            rewards.append(float(metrics["eval/episode_reward"]))
+
+    make_policy, (normalizer, net), metrics = ppo.train(
+        PointEnv(), 40_000, device="cpu", progress_fn=progress,
+        **{**TOY, "num_evals": 4, "num_eval_envs": 16})
+    assert rewards[-1] > rewards[0] + 10, rewards
+    # 40,000 steps over 3 periods after the initial eval: 42 training steps of 320 each
+    assert seen == [0, 13_440, 26_880, 40_320] and float(normalizer.count) == 40_320
     assert all(np.isfinite(v) for v in metrics.values()) and metrics["training/sps"] > 0
-    obs = {"state": torch.ones(1, 4), "privileged_state": torch.ones(1, 4)}
-    a = TN.deterministic_action(net.policy_logits(TRS.normalize(normalizer, obs)))
-    assert a.shape == (1, 2) and bool((a.abs() <= 1).all())
+    policy = make_policy((normalizer, net), deterministic=True)
+    a, extras = policy({"state": torch.ones(1, 4), "privileged_state": torch.ones(1, 4)})
+    assert a.shape == (1, 2) and bool((a.abs() <= 1).all()) and extras == {}
+    a, extras = make_policy((normalizer, net))({"state": torch.ones(3, 4), "privileged_state": torch.ones(3, 4)},
+                                              torch.zeros(3, 2))
+    np.testing.assert_allclose(a.numpy(), np.tanh(extras["raw_action"].numpy()), rtol=1e-6)
+    assert extras["log_prob"].shape == (3,)
 
 
 def test_training_step_k2_contract_and_replayed_draws():
@@ -398,3 +415,123 @@ def test_training_step_k2_contract_and_replayed_draws():
     assert set(ma) == {"total_loss", "policy_loss", "v_loss", "entropy_loss", "grad_norm",
                        "params_norm", "reward_mean"}
     assert all(torch.isfinite(v) for v in ma.values()) and float(ma["total_loss"]) == float(mb["total_loss"])
+
+
+# ----------------------------------------------------------- the schedule
+SCHEDULE = dict(num_envs=8, episode_length=5, unroll_length=2, num_minibatches=2, batch_size=4,
+                num_updates_per_batch=1, num_eval_envs=8, seed=0, policy_hidden_layer_sizes=(4,),
+                value_hidden_layer_sizes=(4,))
+
+
+@pytest.mark.parametrize("max_env_steps_per_jit", [None, 32], ids=["one_chunk", "chunks_of_2"])
+@pytest.mark.parametrize("num_evals", [1, 2, 4])
+def test_hook_steps_match_jax_schedule(num_evals, max_env_steps_per_jit):
+    """The env steps passed to progress_fn and policy_params_fn by JAX
+    `ppo.train` and by the port's, on the toy env: an initial eval when
+    num_evals > 1, then per period the training steps of the JAX
+    arithmetic (ppo.py:460-474; 200 steps of 16 give 5 per period in one
+    chunk, 6 in chunks of at most 2 steps)."""
+    from test_train import PointEnv as JPointEnv
+
+    def run(train, env, **kw):
+        seen = []
+        train(env, num_timesteps=200, num_evals=num_evals, max_env_steps_per_jit=max_env_steps_per_jit,
+              progress_fn=lambda step, m: seen.append(("progress", int(step), "eval/episode_reward" in m)),
+              policy_params_fn=lambda step, make_policy, variables, full_state=None: seen.append(
+                  ("params", int(step), full_state is not None)), **SCHEDULE, **kw)
+        return seen
+
+    want = run(JPPO.train, JPointEnv())
+    got = run(ppo.train, PointEnv(), device="cpu")
+    assert got == want and len(want) == 2 * (num_evals if num_evals > 1 else 1)
+
+
+# ---------------------------------------------- EvalEnv and action repeat
+class _JaxCounter:
+    """Deterministic toy env (JAX side): a counter t per env; done from the
+    step at which t reaches the env's period 2 + floor(12 u), u drawn at
+    reset; reward and metrics from t, u and the action."""
+
+    action_size = 2
+    model = None
+
+    def _state(self, t, u, reward, done):
+        pos = jnp.stack([t, u])
+        z = jnp.zeros(2, jnp.float32)
+        data = JT.Data(qpos=pos, qvel=z, ctrl=z, qacc=z, qacc_warmstart=z)
+        return JET.State(data=data, obs={"state": pos}, reward=reward, done=done,
+                         metrics={"a": reward * 0.5, "tracking_err/t": t}, info={})
+
+    def reset(self, rng, model=None):
+        u = jax.random.uniform(rng, (), jnp.float32)
+        return self._state(jnp.zeros((), jnp.float32), u, jnp.zeros((), jnp.float32), jnp.zeros((), jnp.float32))
+
+    def step(self, state, action, model=None):
+        t, u = state.data.qpos[0] + 1.0, state.data.qpos[1]
+        reward = t * u * (1.0 + jnp.sum(action))
+        done = (t >= 2.0 + jnp.floor(12.0 * u)).astype(jnp.float32)
+        return self._state(t, u, reward.astype(jnp.float32), done)
+
+
+class _TorchCounter:
+    """The port's twin of _JaxCounter; `reset` takes the u draws."""
+
+    action_size = 2
+    model = None
+
+    def step_draws(self, gen, batch):
+        return None
+
+    def _state(self, t, u, reward, done):
+        pos = torch.stack([t, u], -1)
+        z = torch.zeros_like(pos)
+        empty = torch.zeros((pos.shape[0], 0))
+        data = Data(qpos=pos, qvel=z, ctrl=z, qacc=z, qacc_warmstart=z, site_xpos=empty,
+                    site_xmat=empty, actuator_force=empty, contact_dist=empty, sensordata=empty)
+        return State(data=data, obs={"state": pos}, reward=reward, done=done,
+                     metrics={"a": reward * 0.5, "tracking_err/t": t}, info={})
+
+    def reset(self, u, model=None):
+        z = torch.zeros_like(u)
+        return self._state(z, u, z, z.clone())
+
+    def step(self, state, action, draws, model=None):
+        t, u = state.data.qpos[:, 0] + 1.0, state.data.qpos[:, 1]
+        reward = t * u * (1.0 + action.sum(-1))
+        done = (t >= 2.0 + torch.floor(12.0 * u)).to(torch.float32)
+        return self._state(t, u, reward, done)
+
+
+@pytest.mark.parametrize("action_repeat", [1, 2])
+def test_eval_env_and_action_repeat_match_jax(action_repeat):
+    """12 steps of 6 envs through JAX's EvalEnv and the port's, episode
+    length 9: rewards, dones, truncations, step counts and the eval sums
+    (frozen after an env's first done) agree; the action changes every
+    step, so a repeat runs the same action twice."""
+    keys = jax.random.split(jax.random.PRNGKey(3), 6)
+    jev = JW.EvalEnv(_JaxCounter(), episode_length=9, action_repeat=action_repeat)
+    tev = EvalEnv(_TorchCounter(), episode_length=9, action_repeat=action_repeat)
+    jstate = jax.jit(jev.reset)(keys)
+    u = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (), jnp.float32))(keys))
+    tstate = tev.reset(T_(u))
+    jstep = jax.jit(jev.step)
+    gen = torch.Generator().manual_seed(0)
+    dones = truncations = 0
+    for i in range(12):
+        action = np.full((6, 2), 0.1 * (i % 3), np.float32)
+        jstate = jstep(jstate, jnp.asarray(action))
+        tstate = tev.step(tstate, T_(action), tev.step_draws(gen, 6))
+        np.testing.assert_allclose(tstate.reward.numpy(), np.asarray(jstate.reward), rtol=1e-6)
+        for got, want in ((tstate.done, jstate.done), (tstate.info["truncation"], jstate.info["truncation"]),
+                          (tstate.info["steps"], jstate.info["steps"]), (tstate.data.qpos, jstate.data.qpos)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        jem, tem = jstate.info["eval_metrics"], tstate.info["eval_metrics"]
+        for k in ("episode_reward", "episode_length", "episode_done"):
+            np.testing.assert_allclose(tem[k].numpy(), np.asarray(jem[k]), rtol=1e-6, err_msg=k)
+        for k in ("a", "tracking_err/t"):
+            np.testing.assert_allclose(tem["episode_metrics"][k].numpy(), np.asarray(jem["episode_metrics"][k]),
+                                       rtol=1e-6, err_msg=k)
+        dones += int(tstate.done.sum())
+        truncations += int(tstate.info["truncation"].sum())
+    assert dones > 6 and truncations > 0  # both ways an episode ends
+    assert float(tstate.info["eval_metrics"]["episode_done"].min()) == 1.0
