@@ -7,11 +7,11 @@ Phases, one JSON line each (a phase that has several kernels prints several):
   1. device: the card's name and power limit;
   2. build: nvcc builds, side by side, the physics megakernel for the plane
      scene, for the heightfield scene (-DMK_HFIELD=1), for the plane scene
-     on the degenerate (dense) partition and for the robot without backlash
-     joints on the plane (flat_terrain), and the issue-rate probe, from
-     csrc/ into build/kernels/; each megakernel line carries lanes per env,
-     shared bytes per block, local bytes per thread and resident warps per
-     SM;
+     on the degenerate (dense) partition, for the robot without backlash
+     joints on the plane (flat_terrain) and for the robot without its head
+     (flat_terrain_no_head), and the issue-rate probe, from csrc/ into
+     build/kernels/; each megakernel line carries lanes per env, shared
+     bytes per block, local bytes per thread and resident warps per SM;
   3. kernel_vs_plain, kernel_timing: each megakernel build against its plain
      version (`forward.step_reference`) at 8192 domain-randomized envs,
      substep by substep along the kernel's trajectory and over 10 substeps
@@ -38,8 +38,16 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      the resume must continue env_steps, Adam's step and the generator;
      eval (128 envs x 1000 control steps) and training physics through the
      plane kernel;
-  8. standing: one full-width training step of standing / flat_terrain,
-     every physics step through the flat_terrain build.
+  8. standing: one full-width training step of standing / flat_terrain with
+     head_direct_targets (the head servos must take the head commands),
+     every physics step through the flat_terrain build;
+  9. no_head: `cli.runner.main` at the full PPO config on joystick /
+     flat_terrain_no_head with the no-head training recipe (rsi_prob 0.5,
+     progress 6, yaw_rate_l1 -3, lin_vel_l1 -2): one training step and an
+     eval (num_evals=1), in f32 and again with bf16_matmuls; each .onnx
+     against the torch deterministic action of its checkpoint, every
+     physics step through the no-head build; and the time of a reset of
+     8192 envs with and without reference-state init.
 Then the kernel table, the nvidia-smi line, and `{"ok": true, ...}` last.
 Exits non-zero, printing no result, without a CUDA card or when a phase
 fails. Needs no network; the kernel builds count against the run.
@@ -64,6 +72,9 @@ N_ENVS_DENSE = 1024  # the degenerate partition's check: no training path runs i
 N_SUBSTEPS = 10
 CLI_TASK = "flat_terrain_backlash"
 CLI_STEPS = 163_840  # one training step at the full PPO config
+# RESULTS.md's no-head recipe (the last round), as the CLI takes it
+NO_HEAD_RECIPE = ["rsi_prob=0.5", "reward_config.scales.progress=6.0",
+                  "reward_config.scales.yaw_rate_l1=-3.0", "reward_config.scales.lin_vel_l1=-2.0"]
 ONNX_TOLERANCE = 1e-5
 # Per-env gates of the kernel against its plain version, (p90, max), the
 # interpret-mode test's tolerances (test_megakernel_interpret.py). The
@@ -677,17 +688,11 @@ def checkpoint_policy(P, path: pathlib.Path, obs, action_size: int, dev):
     return P.ppo.make_policy((ts.normalizer, ts.net), deterministic=True)
 
 
-def cli_phase(P, gen, smi, spec) -> int:
-    """The training CLI end to end at the full PPO config; returns the
-    launches over both runs of the plane kernel of `spec` (the task's
-    model)."""
-    dev = gen.device
-    ppo, CKPT = P.ppo, P.CKPT
-    cfg = P.cfg.PPOConfig()
-    evals, saves, restores, exports, phases = [], [], [], [], []
-    eval_metrics, save_log, restore_log = [], [], []
+def phase_timed(phases: list):
+    """A wrapper of `ppo.training_step` that appends each call's rollout and
+    update seconds (card synchronized at the phase ends) to `phases`."""
 
-    def training_step(fn):
+    def wrapper(fn):
         def call(*args, **kwargs):
             marks = []
 
@@ -703,6 +708,46 @@ def cli_phase(P, gen, smi, spec) -> int:
 
         return call
 
+    return wrapper
+
+
+def eval_observations(P, task: str, policy, dev):
+    """128 observations of the task's evaluator, 20 control steps into
+    episodes under `policy`."""
+    cfg = P.cfg.PPOConfig()
+    env = P.J.Joystick(task, device=dev)
+    ev = P.W.EvalEnv(env, cfg.episode_length)
+    egen = torch.Generator(device=dev).manual_seed(7)
+    state = ev.reset(env.reset_draws(egen, cfg.num_eval_envs))
+    for _ in range(20):
+        state = ev.step(state, policy(state.obs)[0], ev.step_draws(egen, cfg.num_eval_envs))
+    return state.obs, env.action_size
+
+
+def onnx_errors(P, onnx_files, obs, action_size: int, dev) -> dict:
+    """Per .onnx file, the largest difference of its actions on `obs` from
+    the torch deterministic action of its checkpoint (f32 products, as the
+    file's weights are f32)."""
+    out = {}
+    for f in onnx_files:
+        want = checkpoint_policy(P, f.with_suffix(""), obs, action_size, dev)(obs)[0]
+        got = P.onnx_runtime.OnnxPolicy(str(f)).infer(obs["state"].cpu().numpy())
+        if got.shape != tuple(want.shape):
+            raise SystemExit(f"{f.name}: actions of shape {got.shape}, want {tuple(want.shape)}")
+        out[f.name] = float(np.abs(got - want.cpu().numpy()).max())
+    return out
+
+
+def cli_phase(P, gen, smi, spec) -> int:
+    """The training CLI end to end at the full PPO config; returns the
+    launches over both runs of the plane kernel of `spec` (the task's
+    model)."""
+    dev = gen.device
+    ppo, CKPT = P.ppo, P.CKPT
+    cfg = P.cfg.PPOConfig()
+    evals, saves, restores, exports, phases = [], [], [], [], []
+    eval_metrics, save_log, restore_log = [], [], []
+
     def on_save(args, _):
         path, ts, gen_state = args
         save_log.append({"path": pathlib.Path(path), "env_steps": ts.env_steps,
@@ -717,7 +762,7 @@ def cli_phase(P, gen, smi, spec) -> int:
     runs = []
     with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
         out = pathlib.Path(tmp) / "run"
-        stack.enter_context(wrapped(ppo, "training_step", training_step))
+        stack.enter_context(wrapped(ppo, "training_step", phase_timed(phases)))
         stack.enter_context(wrapped(ppo, "run_eval", timed(evals, lambda a, r: eval_metrics.append(r))))
         stack.enter_context(wrapped(CKPT, "save_training_state", timed(saves, on_save)))
         stack.enter_context(wrapped(CKPT, "restore_training_state", timed(restores, on_restore)))
@@ -746,21 +791,11 @@ def cli_phase(P, gen, smi, spec) -> int:
         stack.close()
 
         # 128 observations from the eval, under the final policy
-        env = P.J.Joystick(CLI_TASK, device=dev)
-        ev = P.W.EvalEnv(env, cfg.episode_length)
-        egen = torch.Generator(device=dev).manual_seed(7)
-        state = ev.reset(env.reset_draws(egen, cfg.num_eval_envs))
         final_policy = ppo.make_policy((normalizer, net), deterministic=True)
-        for _ in range(20):
-            state = ev.step(state, final_policy(state.obs)[0], ev.step_draws(egen, cfg.num_eval_envs))
-        obs = state.obs
-        onnx_err = {}
-        for f in onnx_files:
-            want = checkpoint_policy(P, f.with_suffix(""), obs, env.action_size, dev)(obs)[0]
-            got = P.onnx_runtime.OnnxPolicy(str(f)).infer(obs["state"].cpu().numpy())
-            onnx_err[f.name] = float(np.abs(got - want.cpu().numpy()).max())
+        obs, action_size = eval_observations(P, CLI_TASK, final_policy, dev)
+        onnx_err = onnx_errors(P, onnx_files, obs, action_size, dev)
         last = max(dirs, key=lambda p: int(p.name.rsplit("_", 1)[1]))
-        final_err = float((checkpoint_policy(P, last, obs, env.action_size, dev)(obs)[0]
+        final_err = float((checkpoint_policy(P, last, obs, action_size, dev)(obs)[0]
                            - final_policy(obs)[0]).abs().max())
 
     n_evals = len(evals)
@@ -813,12 +848,13 @@ def cli_phase(P, gen, smi, spec) -> int:
 
 
 def standing_phase(P, gen, smi) -> int:
-    """One full-width training step of the standing task on flat_terrain;
-    returns the flat_terrain build's launches."""
+    """One full-width training step of the standing task on flat_terrain
+    with direct head targets (RESULTS.md's standing recipe); returns the
+    flat_terrain build's launches."""
     dev = gen.device
     ppo = P.ppo
     cfg = P.cfg.PPOConfig(num_evals=1)
-    env = P.S.Standing("flat_terrain", device=dev)
+    env = P.S.Standing("flat_terrain", config_overrides={"head_direct_targets": True}, device=dev)
     train_env = P.W.TrainingEnv(env, cfg.episode_length,
                                 dr_draws=P.R.DRDraws.sample(gen, cfg.num_envs, env.model.spec))
     state = train_env.reset(env.reset_draws(gen, cfg.num_envs))
@@ -841,17 +877,117 @@ def standing_phase(P, gen, smi) -> int:
     finite = all(np.isfinite(v) for v in metrics.values()) and all(
         torch.isfinite(v).all().item() for v in state.obs.values())
     control_steps = cfg.k_unrolls * cfg.unroll_length
+    # the last step's servo targets: the head's are the head commands
+    head_targets = bool(torch.equal(state.info["motor_targets"][:, 5:9], state.info["command"][:, 3:7]))
     ok = (launches == kernel_launches == control_steps and P.MK.launches_hfield == 0 and finite
-          and net_in == sizes and ts.env_steps == cfg.steps_per_training_step)
-    emit({"phase": "standing", "task": "flat_terrain", "envs": cfg.num_envs,
+          and net_in == sizes and ts.env_steps == cfg.steps_per_training_step and head_targets)
+    emit({"phase": "standing", "task": "flat_terrain", "envs": cfg.num_envs, "head_direct_targets": True,
           "rollout_seconds": marks[0] - t0, "update_seconds": marks[1] - marks[0],
           "kernel_launches": launches, "flat_terrain_kernel_launches": kernel_launches,
-          "obs_sizes": sizes, "network_inputs": net_in, "metrics": metrics, "finite": finite,
-          "ok": ok, "card": smi})
+          "obs_sizes": sizes, "network_inputs": net_in, "head_targets_equal_head_commands": head_targets,
+          "metrics": metrics, "finite": finite, "ok": ok, "card": smi})
     if not ok:
         raise SystemExit(f"standing failed: {launches} launches ({kernel_launches} of the flat_terrain "
                          f"build) for {control_steps} control steps, finite {finite}, obs {sizes}, "
-                         f"network inputs {net_in}")
+                         f"network inputs {net_in}, head targets equal head commands {head_targets}")
+    return kernel_launches
+
+
+def reset_seconds(P, gen, task: str, overrides, n_envs: int) -> tuple:
+    """Seconds of one reset of `n_envs` envs (host clock, card synchronized,
+    after a warm-up reset; the draws are made before the clock starts), and
+    the share of envs that start past frame 0 of the gait."""
+    env = P.J.Joystick(task, config_overrides=overrides, device=gen.device)
+    env.reset(env.reset_draws(gen, n_envs))
+    draws = env.reset_draws(gen, n_envs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = env.reset(draws)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, float((state.info["imitation_i"] > 0).float().mean())
+
+
+def no_head_phase(P, gen, smi, spec) -> int:
+    """The no-head training recipe through the CLI at the full PPO config,
+    in f32 and with bf16 products: one training step and an eval each, the
+    checkpoint and .onnx of each checked; returns the no-head build's
+    launches over both runs."""
+    dev = gen.device
+    ppo = P.ppo
+    cfg = P.cfg.PPOConfig()
+    task = "flat_terrain_no_head"
+    runs = {}
+    launches = kernel_launches = launches_hfield = 0
+    for name, extra in (("f32", []), ("bf16_matmuls", ["bf16_matmuls=True"])):
+        phases, evals = [], []
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            out = pathlib.Path(tmp) / name
+            stack.enter_context(wrapped(ppo, "training_step", phase_timed(phases)))
+            stack.enter_context(wrapped(ppo, "run_eval", timed(evals)))
+            argv = ["--env", "joystick", "--task", task, "-o", str(out), "--num_timesteps", str(CLI_STEPS)]
+            for pair in ["num_evals=1"] + NO_HEAD_RECIPE + extra:
+                argv += ["--config_override", pair]
+            torch.cuda.synchronize()
+            P.MK.reset_launches()
+            t0 = time.perf_counter()
+            _, (normalizer, net), metrics = P.cli.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches += P.MK.launches
+            kernel_launches += P.MK.kernel(spec).launches
+            launches_hfield += P.MK.launches_hfield
+            stack.close()
+            dirs = sorted(p for p in out.iterdir() if p.is_dir())
+            onnx_files = sorted(out.glob("*.onnx"))
+            policy = ppo.make_policy((normalizer, net), deterministic=True)
+            obs, action_size = eval_observations(P, task, policy, dev)
+            onnx_err = onnx_errors(P, onnx_files, obs, action_size, dev)
+            # the returned network's own products against the checkpoint's in f32
+            returned_err = float((checkpoint_policy(P, dirs[-1], obs, action_size, dev)(obs)[0]
+                                  - policy(obs)[0]).abs().max())
+        runs[name] = {
+            "seconds": seconds, "training_steps": phases, "seconds_per_eval": evals,
+            "matmul_dtype": str(net.policy.matmul_dtype), "action_size": action_size,
+            "obs_sizes": {k: int(v.shape[-1]) for k, v in obs.items()},
+            "checkpoints": [p.name for p in dirs], "onnx_max_abs_err": onnx_err,
+            "returned_policy_vs_f32_checkpoint": returned_err,
+            "final_training_metrics": metrics,
+            "params_f32": all(p.dtype == torch.float32 for p in net.parameters()),
+        }
+    eval_steps = cfg.episode_length // cfg.action_repeat
+    control_steps = sum(len(r["seconds_per_eval"]) * eval_steps
+                        + len(r["training_steps"]) * cfg.k_unrolls * cfg.unroll_length for r in runs.values())
+    reset = {}
+    for label, overrides in (("rsi_prob=0.5", {"rsi_prob": 0.5}), ("rsi_prob=0", None)):
+        t, share = reset_seconds(P, gen, task, overrides, cfg.num_envs)
+        reset[label] = {"seconds": t, "share_past_frame_0": share}
+
+    failures = []
+    for name, r in runs.items():
+        if (len(r["training_steps"]) != 1 or len(r["seconds_per_eval"]) != 1 or len(r["checkpoints"]) != 1
+                or len(r["onnx_max_abs_err"]) != 1):
+            failures.append(f"{name}: {len(r['training_steps'])} training steps, {len(r['seconds_per_eval'])} "
+                            f"evals, {len(r['checkpoints'])} checkpoints, {len(r['onnx_max_abs_err'])} onnx")
+        if not r["onnx_max_abs_err"] or max(r["onnx_max_abs_err"].values()) >= ONNX_TOLERANCE:
+            failures.append(f"{name}: onnx {r['onnx_max_abs_err']}")
+        if r["action_size"] != 10 or not r["params_f32"]:
+            failures.append(f"{name}: {r['action_size']} actions, f32 parameters {r['params_f32']}")
+        if not all(np.isfinite(v) for v in r["final_training_metrics"].values()):
+            failures.append(f"{name}: non-finite metrics")
+    if runs["f32"]["returned_policy_vs_f32_checkpoint"] > 1e-6:
+        failures.append("f32 run: the returned policy is not its checkpoint's")
+    if runs["f32"]["matmul_dtype"] != "None" or runs["bf16_matmuls"]["matmul_dtype"] != "torch.bfloat16":
+        failures.append("the runs' networks do not take the products asked for")
+    if not (launches == kernel_launches == control_steps and launches_hfield == 0):
+        failures.append(f"{launches} launches ({kernel_launches} of the no-head build), want {control_steps}")
+    if not 0.4 < reset["rsi_prob=0.5"]["share_past_frame_0"] < 0.6 or reset["rsi_prob=0"]["share_past_frame_0"]:
+        failures.append(f"reference-state init: {reset}")
+    emit({"phase": "no_head", "task": task, "recipe": NO_HEAD_RECIPE, "envs": cfg.num_envs,
+          "runs": runs, "kernel_launches": launches, "no_head_kernel_launches": kernel_launches,
+          "expected_launches": control_steps, "onnx_tolerance": ONNX_TOLERANCE,
+          "reset_at_8192_envs": reset, "ok": not failures, "card": smi})
+    if failures:
+        raise SystemExit(f"no_head failed: {failures}")
     return kernel_launches
 
 
@@ -874,9 +1010,12 @@ def main() -> int:
                                 timestep=0.002)
     flat_nb = P.loader.load_model("scene_flat_terrain", device=dev, dtype=torch.float32,
                                   timestep=0.002)
+    no_head = P.loader.load_model("scene_flat_terrain_no_head", device=dev, dtype=torch.float32,
+                                  timestep=0.002)
     build_phase(P, {"megakernel_step": (flat, False), "megakernel_step_hfield": (rough, False),
                     "megakernel_step_dense": (flat, True),
-                    "megakernel_step_flat_terrain": (flat_nb, False)})
+                    "megakernel_step_flat_terrain": (flat_nb, False),
+                    "megakernel_step_flat_terrain_no_head": (no_head, False)})
 
     gen = torch.Generator(device=dev).manual_seed(0)
     row_flat = kernel_phase(P, "megakernel_step", flat, gen, P.MK.TPU_KERNEL, timing_reps=10)
@@ -885,6 +1024,8 @@ def main() -> int:
     row_dense = kernel_phase(P, "megakernel_step_dense", flat, gen, P.MK.TPU_KERNEL_DENSE,
                              timing_reps=10, dense=True, n_envs=N_ENVS_DENSE)
     row_nb = kernel_phase(P, "megakernel_step_flat_terrain", flat_nb, gen, P.MK.TPU_KERNEL,
+                          timing_reps=10)
+    row_nh = kernel_phase(P, "megakernel_step_flat_terrain_no_head", no_head, gen, P.MK.TPU_KERNEL,
                           timing_reps=10)
     # the evaluator's shape: 128 envs on the nominal model (per-env fields expanded)
     at_eval = kernel_phase(P, "megakernel_step", flat, gen, P.MK.TPU_KERNEL, timing_reps=50,
@@ -896,8 +1037,12 @@ def main() -> int:
     row_hfield["launches"] = ppo_phase(P, gen, smi)
     row_flat["launches_cli"] = cli_phase(P, gen, smi, flat.spec)
     row_nb["launches"] = standing_phase(P, gen, smi)
+    row_nh["launches"] = no_head_phase(P, gen, smi, no_head.spec)
 
-    emit({"kernels": [row_flat, row_hfield, row_dense, row_nb, row_probe],
+    for row, label in ((row_flat, "1"), (row_nb, "1f"), (row_hfield, "1h"), (row_dense, "1d"),
+                       (row_nh, "1n"), (row_probe, "2")):
+        row["row"] = label
+    emit({"kernels": [row_flat, row_nb, row_hfield, row_dense, row_nh, row_probe],
           "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -20,6 +20,8 @@ TASKS = {
     "flat_terrain_backlash": "scene_flat_terrain_backlash",
     "rough_terrain_backlash": "scene_rough_terrain_backlash",
     "rough_terrain": "scene_rough_terrain",
+    # the robot without its head (10 actuators, legs only)
+    "flat_terrain_no_head": "scene_flat_terrain_no_head",
 }
 
 FEET_SITES = ["left_foot", "right_foot"]
@@ -47,13 +49,9 @@ def override_config(config, overrides: Optional[Mapping[str, Any]]):
     `push_config.magnitude_range=[0.1, 0.5]`), by the rules of
     `ConfigDict.update_from_flattened_dict` on a locked config: an unknown
     key raises KeyError, a value that cannot take the field's type raises
-    TypeError (an int may stand for a float). A key of an option the port
-    does not have yet (the config's `UNPORTED`) raises NotImplementedError."""
+    TypeError (an int may stand for a float)."""
     for key, value in (overrides or {}).items():
-        path = key.split(".")
-        if path[0] in getattr(config, "UNPORTED", ()):
-            raise NotImplementedError(f"config option {path[0]!r} is not ported yet")
-        config = _replace_path(config, path, value, key)
+        config = _replace_path(config, key.split("."), value, key)
     return config
 
 

@@ -15,15 +15,22 @@ observation (`del noisy_gravity`).
 
 The class flags (`use_imitation`, `use_motor_speed_limits`,
 `obs_has_motor_targets`, `obs_has_imitation_phase`) are the JAX class's;
-`envs/standing.py` turns them off. Not ported yet, and a config override
-of either raises: reference-state init (`rsi_prob`) and direct head
-targets (`head_direct_targets`).
+`envs/standing.py` turns them off. The robot has 14 actuators (legs 0:5 and
+9:14, head 5:9) or, on `flat_terrain_no_head`, 10 (legs only): the head's
+metric and `head_direct_targets` exist only on the first, the gait
+retarget (`_imitation_ref_offset`) only on the second.
+
+Options beyond the reference, off by default: reference-state init
+(`rsi_prob`: a reset starts mid-gait from a random frame of the reference
+motion with that probability) and direct head targets
+(`head_direct_targets`: the head servos take the head command).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, ClassVar, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import math
 
@@ -95,8 +102,6 @@ class JoystickConfig:
     `history_len` and `soft_joint_pos_limit_factor` are read by nothing
     here, as in the reference (the trainer has its own)."""
 
-    UNPORTED: ClassVar[Tuple[str, ...]] = ("rsi_prob", "head_direct_targets")
-
     ctrl_dt: float = 0.02
     sim_dt: float = 0.002
     episode_length: int = 1000
@@ -104,6 +109,7 @@ class JoystickConfig:
     action_scale: float = 0.25
     use_imitation: bool = True
     reset_joint_scale_range: Tuple[float, float] = (0.5, 1.5)
+    rsi_prob: float = 0.0
     dof_vel_scale: float = 0.05
     history_len: int = 0
     soft_joint_pos_limit_factor: float = 0.95
@@ -119,6 +125,7 @@ class JoystickConfig:
     head_yaw_range: Tuple[float, float] = (-1.5, 1.5)
     head_roll_range: Tuple[float, float] = (-0.5, 0.5)
     head_range_factor: float = 1.0
+    head_direct_targets: bool = False
 
 
 # ------------------------------------------------------------------ draws
@@ -165,6 +172,10 @@ class ResetDraws:
     command: torch.Tensor  # (B, 7)
     push_interval: torch.Tensor  # (B,) U(push interval_range) seconds
     obs: ObsNoise
+    # reference-state init, drawn only when the env uses it (imitation on,
+    # rsi_prob > 0), so that other runs keep their generator stream
+    rsi_gate: Optional[torch.Tensor] = None  # (B,) U[0, 1): RSI where < rsi_prob
+    rsi_phase: Optional[torch.Tensor] = None  # (B,) int in [0, nb_steps_in_period)
 
     @property
     def batch(self) -> int:
@@ -173,7 +184,7 @@ class ResetDraws:
     @classmethod
     def sample(cls, gen: torch.Generator, batch: int, env: "Joystick") -> "ResetDraws":
         cfg, nu = env.config, env.action_size
-        return cls(
+        draws = cls(
             base_dxy=_u(gen, (batch, 2), -0.05, 0.05),
             yaw=_u(gen, (batch,), -3.14, 3.14),
             joint_scale=_u(gen, (batch, nu), *env.reset_joint_scale_range),
@@ -181,6 +192,14 @@ class ResetDraws:
             command=env.sample_command(gen, batch),
             push_interval=_u(gen, (batch,), *cfg.push_config.interval_range),
             obs=ObsNoise.sample(gen, batch, nu),
+        )
+        if not env.uses_rsi:
+            return draws
+        return dataclasses.replace(
+            draws,
+            rsi_gate=torch.rand((batch,), generator=gen, device=gen.device),
+            rsi_phase=torch.randint(0, env.gait.nb_steps_in_period, (batch,), generator=gen,
+                                    device=gen.device),
         )
 
 
@@ -234,6 +253,13 @@ class Joystick(DuckEnv):
             self._init_q[2] += float(m.hfield_size[2]) + 0.002
         self._default_actuator = m.key_ctrl.clone()
         self.gait = GaitOracle(device=dev) if self.use_imitation else None
+        # the gait library's joint targets retargeted onto the no-head
+        # robot's own balanced stance; None on the full robot, whose home
+        # keyframe is the library's stance
+        self._imitation_ref_offset = None
+        if self.use_imitation and m.spec.nu == 10:
+            home = torch.tensor(imitation.GAIT_HOME_LEGS, dtype=torch.float32, device=dev)
+            self._imitation_ref_offset = m.key_ctrl - home
         scale = torch.zeros(m.spec.nu)
         nc = config.noise_config.scales
         for i, name in enumerate(duck_base.JOINTS_ORDER_NO_HEAD):
@@ -247,7 +273,9 @@ class Joystick(DuckEnv):
         self._metric_keys = [
             ("reward/" if v > 0 else "cost/") + k
             for k, v in config.reward_config.scales.items() if v != 0
-        ] + ["swing_peak", "tracking_err/lin_vel", "tracking_err/ang_vel", "tracking_err/head"]
+        ] + ["swing_peak", "tracking_err/lin_vel", "tracking_err/ang_vel"]
+        if self.has_head:
+            self._metric_keys.append("tracking_err/head")
 
     @staticmethod
     def default_config():
@@ -256,6 +284,15 @@ class Joystick(DuckEnv):
     @property
     def config(self):
         return self._config
+
+    @property
+    def has_head(self) -> bool:
+        """The 14-actuator robot: head servos at actuator slots 5:9."""
+        return self.action_size == 14
+
+    @property
+    def uses_rsi(self) -> bool:
+        return self.use_imitation and self._config.rsi_prob > 0.0
 
     @property
     def reset_joint_scale_range(self) -> Tuple[float, float]:
@@ -288,11 +325,14 @@ class Joystick(DuckEnv):
         qvel[:, v : v + 6] = draws.base_vel
         cmd = draws.command
 
+        i0 = torch.zeros(B, dtype=torch.int32, device=dev)
+        if self.uses_rsi:
+            i0 = self._reference_state_init(qpos, qvel, cmd, draws)
+
         ctrl = self.get_actuator_joints_qpos(qpos)
         data = F.init(model, qpos, qvel, ctrl)
         push_interval_steps = torch.round(draws.push_interval / self.dt).to(torch.int32)
 
-        i0 = torch.zeros(B, dtype=torch.int32, device=dev)
         z = lambda *shape: torch.zeros((B,) + shape, **f32)
         if self.use_imitation:
             ref = self.gait.reference_frame(cmd[:, 0], cmd[:, 1], cmd[:, 2], i0)
@@ -317,11 +357,42 @@ class Joystick(DuckEnv):
             "current_reference_motion": ref,
         }
         if self.obs_has_imitation_phase:
-            info["imitation_phase"] = z(2)
+            info["imitation_phase"] = self._phase(i0) if self.uses_rsi else z(2)
         metrics = {k: z() for k in self._metric_keys}
         contact = C.feet_contact_flags(model, data.contact_dist)
         obs = self._get_obs(data, info, contact, draws.obs)
         return State(data=data, obs=obs, reward=z(), done=z(), metrics=metrics, info=info)
+
+    def _phase(self, i: torch.Tensor) -> torch.Tensor:
+        """(B, 2): cos and sin of the gait phase of frame `i`."""
+        ph = i / self.gait.nb_steps_in_period * 2 * math.pi
+        return torch.stack([torch.cos(ph), torch.sin(ph)], -1)
+
+    def _reference_state_init(self, qpos, qvel, cmd, draws: ResetDraws) -> torch.Tensor:
+        """In place on qpos and qvel: where the gate passes, the leg joints
+        (retargeted), their velocities and the base velocity (the frame's
+        heading-local linear velocity rotated by the base quaternion, yaw
+        included) from the reference frame at a random phase. The head
+        joints keep their perturbed reset pose. Returns each env's first
+        frame index: the drawn phase where the gate passed, else 0."""
+        if draws.rsi_gate is None or draws.rsi_phase is None:
+            raise ValueError("rsi_prob > 0: the reset draws need rsi_gate and rsi_phase")
+        gate = draws.rsi_gate < self._config.rsi_prob
+        i0 = torch.where(gate, draws.rsi_phase, 0).to(torch.int32)
+        ref = self.gait.reference_frame(cmd[:, 0], cmd[:, 1], cmd[:, 2], i0)
+        jpos, jvel = imitation.legs16(ref[:, 0:16]), imitation.legs16(ref[:, 16:32])
+        if self._imitation_ref_offset is not None:
+            jpos = jpos + self._imitation_ref_offset
+        legs = [i for i in range(self.action_size) if not (self.has_head and 5 <= i < 9)]
+        qa = [self._actuator_qposadr[i] for i in legs]
+        da = [self._actuator_dofadr[i] for i in legs]
+        g = gate[:, None]
+        qpos[:, qa] = torch.where(g, jpos, qpos[:, qa])
+        qvel[:, da] = torch.where(g, jvel, qvel[:, da])
+        a, v = self._floating_base_qpos_addr, self._floating_base_qvel_addr
+        base_vel = torch.cat([maths.quat_rotate(qpos[:, a + 3 : a + 7], ref[:, 34:37]), ref[:, 37:40]], -1)
+        qvel[:, v : v + 6] = torch.where(g, base_vel, qvel[:, v : v + 6])
+        return i0
 
     # ------------------------------------------------------------- step
     def step(self, state: State, action: torch.Tensor, draws: StepDraws,
@@ -337,8 +408,7 @@ class Joystick(DuckEnv):
             imitation_i = torch.remainder(info["imitation_i"] + 1, n)
             info["imitation_i"] = imitation_i
             if self.obs_has_imitation_phase:
-                ph = imitation_i / n * 2 * math.pi
-                info["imitation_phase"] = torch.stack([torch.cos(ph), torch.sin(ph)], -1)
+                info["imitation_phase"] = self._phase(imitation_i)
             cmd = info["command"]
             info["current_reference_motion"] = self.gait.reference_frame(
                 cmd[:, 0], cmd[:, 1], cmd[:, 2], imitation_i)
@@ -367,6 +437,11 @@ class Joystick(DuckEnv):
             prev = info["motor_targets"]
             lim = cfg.max_motor_velocity * self.dt
             motor_targets = torch.clamp(motor_targets, prev - lim, prev + lim)
+        if self.has_head and cfg.head_direct_targets:
+            # the head servos take the head command; the policy's actions
+            # move the legs only
+            motor_targets = torch.cat([motor_targets[:, :5], info["command"][:, 3:7],
+                                       motor_targets[:, 9:]], -1)
 
         data = F.step(model, data, motor_targets, self.n_substeps)
         info["motor_targets"] = motor_targets
@@ -413,8 +488,9 @@ class Joystick(DuckEnv):
         metrics["tracking_err/lin_vel"] = torch.linalg.vector_norm(
             cmd_active[:, :2] - local_vel[:, :2], dim=-1)
         metrics["tracking_err/ang_vel"] = torch.abs(cmd_active[:, 2] - gyro[:, 2])
-        head_q = self.get_actuator_joints_qpos(data.qpos)[:, 5:9]
-        metrics["tracking_err/head"] = torch.mean(torch.abs(head_q - cmd_active[:, 3:7]), -1)
+        if self.has_head:
+            head_q = self.get_actuator_joints_qpos(data.qpos)[:, 5:9]
+            metrics["tracking_err/head"] = torch.mean(torch.abs(head_q - cmd_active[:, 3:7]), -1)
 
         return state.replace(data=data, obs=obs, reward=reward, done=done.to(reward.dtype),
                              metrics=metrics, info=info)
@@ -498,12 +574,10 @@ class Joystick(DuckEnv):
         local_vel = self.get_local_linvel(data)
         gyro = self.get_gyro(data)
         cmd = info["command"]
-        if self.use_imitation:
-            imitation_r = imitation.imitation_reward(
-                self.get_floating_base_qvel(data.qvel), jq, jv, contact,
-                info["current_reference_motion"], cmd)
-        else:
-            imitation_r = torch.zeros_like(cmd[:, 0])
+        imitation_r = imitation.imitation_reward(
+            self.get_floating_base_qvel(data.qvel), jq, jv, contact,
+            info["current_reference_motion"], cmd, self.use_imitation,
+            ref_jpos_offset=self._imitation_ref_offset)
         return {
             "tracking_lin_vel": R.tracking_lin_vel(cmd, local_vel, sigma),
             "tracking_ang_vel": R.tracking_ang_vel(cmd, gyro, sigma),

@@ -6,7 +6,9 @@ motor-speed slew clamp, obs without `motor_targets` and the imitation phase,
 and the rewards orientation, torques, action_rate, alive, stand_still (legs
 only) and head_pos. The head_pos cost keeps the reference's gate on moving
 commands, so by default it is zero in this task (a parity quirk);
-`head_pos_ungated=True` drops the gate.
+`head_pos_ungated=True` drops the gate. `head_direct_targets=True` (the
+joystick task's option, through the inherited step) gives the head servos
+the head command.
 
 The draws are the joystick task's (`ResetDraws`, `StepDraws`); only the
 command they carry is sampled by `Standing.sample_command`.
@@ -15,7 +17,7 @@ command they carry is sampled by `Standing.sample_command`.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import ClassVar, Dict, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -46,8 +48,6 @@ class StandingRewardConfig:
 class StandingConfig:
     """The reference's standing default_config."""
 
-    UNPORTED: ClassVar[Tuple[str, ...]] = ("head_direct_targets",)
-
     ctrl_dt: float = 0.02
     sim_dt: float = 0.002
     episode_length: int = 1000
@@ -66,6 +66,7 @@ class StandingConfig:
     head_roll_range: Tuple[float, float] = (-0.5, 0.5)
     head_range_factor: float = 1.0
     head_pos_ungated: bool = False
+    head_direct_targets: bool = False
 
 
 class Standing(Joystick):

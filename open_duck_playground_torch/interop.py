@@ -8,7 +8,7 @@ passes "cpu". Nothing here imports JAX.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -29,12 +29,13 @@ def _tensor(x, device="cuda") -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=device)
 
 
-def mlp_from_jax(params: Mapping, device="cuda") -> MLP:
-    """MLP from {"hidden_i": {"kernel": (in, out), "bias": (out,)}}."""
+def mlp_from_jax(params: Mapping, device="cuda", matmul_dtype: Optional[torch.dtype] = None) -> MLP:
+    """MLP from {"hidden_i": {"kernel": (in, out), "bias": (out,)}}, its
+    products in `matmul_dtype` as the JAX network's (None: f32)."""
     n = len(params)
     kernels = [np.asarray(params[f"hidden_{i}"]["kernel"], np.float32) for i in range(n)]
     sizes = [kernels[0].shape[0]] + [k.shape[1] for k in kernels]
-    mlp = MLP(sizes, device=device)
+    mlp = MLP(sizes, device=device, matmul_dtype=matmul_dtype)
     with torch.no_grad():
         for i, layer in enumerate(mlp.layers):
             layer.weight.copy_(_tensor(kernels[i].T, device))
@@ -42,10 +43,13 @@ def mlp_from_jax(params: Mapping, device="cuda") -> MLP:
     return mlp
 
 
-def networks_from_jax(params_np: Mapping, device="cuda") -> PPONetworks:
-    """PPONetworks from the JAX {"policy": ..., "value": ...} parameter tree."""
-    return PPONetworks(mlp_from_jax(params_np["policy"], device),
-                       mlp_from_jax(params_np["value"], device))
+def networks_from_jax(params_np: Mapping, device="cuda",
+                      matmul_dtype: Optional[torch.dtype] = None) -> PPONetworks:
+    """PPONetworks from the JAX {"policy": ..., "value": ...} parameter tree
+    (`matmul_dtype=torch.bfloat16` for a network trained with
+    `bf16_matmuls`: the parameter tree does not say)."""
+    return PPONetworks(mlp_from_jax(params_np["policy"], device, matmul_dtype),
+                       mlp_from_jax(params_np["value"], device, matmul_dtype))
 
 
 def normalizer_from_jax(stats_np: Any, device="cuda") -> RunningStats:

@@ -42,6 +42,7 @@ SCENES = (
     "scene_flat_terrain",
     "scene_rough_terrain_backlash",
     "scene_rough_terrain",
+    "scene_flat_terrain_no_head",
 )
 
 FREE, HINGE = 0, 3

@@ -32,8 +32,8 @@ class PPOConfig:
     num_eval_envs: int = 128
     deterministic_eval: bool = False
     seed: int = 0
-    # bf16 matmuls with f32 accumulation for the actor/critic: not ported
-    # (`ppo.train` raises when it is set)
+    # bf16 operands with f32 results in the actor's and critic's products
+    # (networks.MLP); off: f32 products, brax parity
     bf16_matmuls: bool = False
     policy_hidden_layer_sizes: Tuple[int, ...] = (128, 128, 128, 128)
     value_hidden_layer_sizes: Tuple[int, ...] = (256, 256, 256, 256)

@@ -3,6 +3,15 @@ semantics). Counterpart of `open_duck_playground_tpu/train/networks.py`:
 init, forward, sampling, postprocess, the deterministic action, `log_prob`
 and `entropy`. Random numbers are arguments (`noise`), never drawn here
 except by `normal_noise` from an explicit generator.
+
+`matmul_dtype=torch.bfloat16` (the trainer's `bf16_matmuls`) gives the
+JAX package's mixed-precision products (`jnp.dot` of bf16 operands with
+`preferred_element_type=float32`): each product takes bf16-rounded inputs
+and returns f32, in the form of an f32 product of the rounded operands (two
+bf16 mantissas multiply exactly in f32, and TF32 is off). The backward pass
+is JAX's transpose of that product: the gradients of both operands are
+rounded to bf16. Parameters, biases, activations, gradients and Adam's
+state stay f32.
 """
 
 from __future__ import annotations
@@ -19,14 +28,41 @@ _MIN_STD = 0.001
 _LOG2 = 0.6931471805599453
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even), kept in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+class _Bf16Linear(torch.autograd.Function):
+    """x W^T + b with bf16-rounded x and W and an f32 result; the operands'
+    gradients are rounded to bf16 as JAX rounds them, the bias's is not."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        xb, wb = _bf16(x), _bf16(weight)
+        ctx.save_for_backward(xb, wb)
+        return torch.matmul(xb, wb.t()) + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = _bf16(torch.matmul(g, wb)) if ctx.needs_input_grad[0] else None
+        gw = _bf16(torch.matmul(g2.t(), xb.reshape(-1, xb.shape[-1])))
+        return gx, gw, g2.sum(0)
+
+
 class MLP(nn.Module):
     """Linear layers with swish between them (none after the last)."""
 
     def __init__(self, sizes: Sequence[int], generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 device="cuda", matmul_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if torch.device(device).type == "cuda":
             pin_f32()
+        if matmul_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"matmul_dtype must be None or torch.bfloat16, got {matmul_dtype}")
+        self.matmul_dtype = matmul_dtype
         self.sizes = tuple(sizes)
         self.layers = nn.ModuleList(
             nn.Linear(din, dout, device=device) for din, dout in zip(sizes[:-1], sizes[1:])
@@ -43,7 +79,10 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            if self.matmul_dtype is None:
+                x = layer(x)
+            else:
+                x = _Bf16Linear.apply(x, layer.weight, layer.bias)
             if i < n - 1:
                 x = nn.functional.silu(x)
         return x
@@ -65,10 +104,11 @@ class PPONetworks(nn.Module):
     def init(cls, obs_sizes: Dict[str, int], action_size: int, policy_hidden: Sequence[int],
              generator: torch.Generator, device="cuda", policy_obs_key: str = "state",
              value_hidden: Sequence[int] = (256, 256, 256, 256),
-             value_obs_key: str = "privileged_state"):
+             value_obs_key: str = "privileged_state",
+             matmul_dtype: Optional[torch.dtype] = None):
         policy = MLP((obs_sizes[policy_obs_key], *policy_hidden, 2 * action_size),
-                     generator, device)
-        value = MLP((obs_sizes[value_obs_key], *value_hidden, 1), generator, device)
+                     generator, device, matmul_dtype)
+        value = MLP((obs_sizes[value_obs_key], *value_hidden, 1), generator, device, matmul_dtype)
         return cls(policy, value, policy_obs_key, value_obs_key)
 
     def policy_logits(self, norm_obs: Dict[str, torch.Tensor]) -> torch.Tensor:

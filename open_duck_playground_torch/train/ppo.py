@@ -15,8 +15,10 @@ replay them. The evaluator has a generator of its own.
 `train` keeps the JAX trainer's schedule: the same number of training steps
 per eval period, an initial eval when `num_evals > 1`, and the hooks called
 once per period with the period's mean metrics. It runs the hooks after the
-period instead of overlapping them with the next one. Not ported yet, and
-`train` raises on a request for them: `bf16_matmuls` and a device mesh.
+period instead of overlapping them with the next one. `bf16_matmuls` puts
+the networks' products in bf16 with f32 results (`networks.MLP`) for the
+rollout's policy and the SGD steps. Not ported yet, and `train` raises on a
+request for it: a device mesh.
 """
 
 from __future__ import annotations
@@ -87,7 +89,8 @@ def init_training_state(obs: Dict[str, torch.Tensor], action_size: int, cfg: PPO
     net = N.PPONetworks.init(sizes, action_size, cfg.policy_hidden_layer_sizes, generator,
                              device=device, policy_obs_key=cfg.policy_obs_key,
                              value_hidden=cfg.value_hidden_layer_sizes,
-                             value_obs_key=cfg.value_obs_key)
+                             value_obs_key=cfg.value_obs_key,
+                             matmul_dtype=torch.bfloat16 if cfg.bf16_matmuls else None)
     return TrainingState(net=net, optimizer=make_optimizer(net, cfg.learning_rate),
                          normalizer=RS.init(sizes, device=device))
 
@@ -383,10 +386,8 @@ def train(environment, num_timesteps: Optional[int] = None, config: Optional[PPO
     (normalizer, net), metrics)."""
     cfg = dataclasses.replace(config or PPOConfig(), **overrides)
     num_timesteps = cfg.num_timesteps if num_timesteps is None else num_timesteps
-    unported = {"bf16_matmuls": cfg.bf16_matmuls, "mesh": mesh is not None}
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+    if mesh is not None:
+        raise NotImplementedError("not ported yet: mesh")
     cfg.k_unrolls  # raises on a broken rollout contract
 
     dev = torch.device(device)

@@ -5,7 +5,8 @@
   (JAX `cli/runner.py:75-86`).
 - The env config takes the routed overrides as the JAX ConfigDict does:
   the same values, KeyError on an unknown key, TypeError on a float for an
-  int; an option the port lacks raises NotImplementedError.
+  int; every option of the JAX config is there (`rsi_prob`,
+  `head_direct_targets` included).
 - `main([...], device="cpu")` at a tiny config writes a `<date>_<step>`
   checkpoint directory and an .onnx file per eval, and a run resumed from
   the last checkpoint continues `env_steps`, Adam's step and the generator.
@@ -90,24 +91,26 @@ def test_env_overrides_take_like_the_config_dict(task_env):
     jcfg, tcfg = ((JJ.default_config(), JoystickConfig()) if task_env == "joystick"
                   else (JS.default_config(), StandingConfig()))
     jcfg = jcfg.lock()
-    pairs = PAIRS[8:-1] + (["reward_config.scales.tracking_lin_vel=4", "use_imitation=False"]
-                           if task_env == "joystick" else ["reward_config.scales.head_pos=-1", "head_pos_ungated=True"])
+    pairs = PAIRS[8:-1] + (["reward_config.scales.tracking_lin_vel=4", "use_imitation=False", "rsi_prob=0.5",
+                            "head_direct_targets=True"]
+                           if task_env == "joystick" else ["reward_config.scales.head_pos=-1", "head_pos_ungated=True",
+                                                           "head_direct_targets=True"])
     _, env_overrides = runner.split_overrides(runner.parse_overrides(pairs))
     jcfg.update_from_flattened_dict(env_overrides)
     tcfg = duck_base.override_config(tcfg, env_overrides)
     want = _as_plain(jcfg)
-    unported = set(want) - {f.name for f in dataclasses.fields(tcfg)}
-    assert unported == set(type(tcfg).UNPORTED)
-    assert {k: v for k, v in want.items() if k not in unported} == _as_plain(tcfg)
+    assert want == _as_plain(tcfg)
+    assert tcfg.head_direct_targets is True
+    if task_env == "joystick":
+        assert tcfg.rsi_prob == 0.5 and isinstance(tcfg.rsi_prob, float)
     for bad, error in (({"bogus": 1}, KeyError), ({"reward_config.scales.bogus": 1.0}, KeyError),
                        ({"noise_config.action_max_delay": 2.5}, TypeError)):
         with pytest.raises(error):
             jcfg.update_from_flattened_dict(bad)
         with pytest.raises(error):
             duck_base.override_config(tcfg, bad)
-    for option in type(tcfg).UNPORTED:
-        with pytest.raises(NotImplementedError):
-            duck_base.override_config(tcfg, {option: jcfg[option]})
+    with pytest.raises(TypeError):  # a bool option takes no number
+        duck_base.override_config(tcfg, {"head_direct_targets": 1})
 
 
 TINY = ["num_envs=8", "batch_size=4", "num_minibatches=2", "unroll_length=4", "num_updates_per_batch=1",
@@ -154,7 +157,9 @@ def test_main_writes_a_checkpoint_and_onnx_per_eval_and_resumes(tmp_path, capsys
 
 
 def test_unported_task_and_unknown_env_raise():
-    with pytest.raises(NotImplementedError):
-        runner.build_env("joystick", "flat_terrain_no_head", device="cpu")
+    """Every task of the CLI builds (the no-head robot has 10 actions); an
+    unknown env raises."""
+    env = runner.build_env("joystick", "flat_terrain_no_head", {"rsi_prob": 0.5}, device="cpu")
+    assert env.action_size == 10 and env.config.rsi_prob == 0.5
     with pytest.raises(ValueError):
         runner.build_env("walking", "flat_terrain", device="cpu")

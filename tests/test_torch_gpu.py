@@ -252,3 +252,50 @@ def test_standing_step_runs_on_flat_terrain_through_the_kernel(cuda):
     torch.cuda.synchronize()
     assert MK.kernel(env.model.spec).launches - before == 3 and MK.kernel_dims(env.model.spec)["NV"] == 20
     assert all(torch.isfinite(v).all() for v in state.obs.values()) and torch.isfinite(state.reward).all()
+
+
+def test_cuda_no_head_kernel_matches_step_reference(cuda):
+    """The plane build for the no-head robot (nv 16, chains of 5 and 5):
+    its block-arrow partition, every env within the max gates one substep
+    per launch along the kernel's trajectory, and the one 10-substep launch
+    equal to those launches."""
+    model = loader.load_model("scene_flat_terrain_no_head", device=cuda, timestep=0.002)
+    dims = MK.kernel_dims(model.spec)
+    assert (dims["NV"], dims["NU"], dims["NCHAIN"], dims["MAXCHAIN"], dims["NROOT"]) == (16, 10, 2, 5, 6)
+    batch = 1000
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    m = domain_randomize(model, DRDraws.sample(gen, batch, model.spec))
+    qpos = model.key_qpos + 0.01 * torch.randn(batch, model.spec.nq, generator=gen, device=cuda)
+    qvel = 0.1 * torch.randn(batch, model.spec.nv, generator=gen, device=cuda)
+    ctrl = model.key_ctrl.expand(batch, -1).contiguous()
+    d0 = F.init(m, qpos, qvel, ctrl)
+    before = MK.kernel(model.spec).launches
+    d = d0
+    for _ in range(10):
+        k1, p1 = MK.megakernel_step(m, d, ctrl, 1), F.step_reference(m, d, ctrl, 1)
+        for f, mx in (("qpos", 1e-4), ("qvel", 1e-2)):
+            assert _per_env(getattr(k1, f), getattr(p1, f)).max() < mx, f
+        d = k1
+    got = MK.megakernel_step(m, d0, ctrl, 10)
+    assert MK.kernel(model.spec).launches - before == 11
+    assert torch.equal(got.qpos, d.qpos) and torch.equal(got.qvel, d.qvel)
+
+
+def test_no_head_recipe_step_runs_through_the_kernel(cuda):
+    """A training step of the no-head recipe (rsi_prob 0.5, bf16 products)
+    on the card: one no-head launch per control step, finite metrics."""
+    cfg = PPOConfig(num_envs=256, batch_size=64, num_minibatches=4, unroll_length=5,
+                    num_updates_per_batch=2, num_evals=1, bf16_matmuls=True)
+    env = Joystick("flat_terrain_no_head", config_overrides={"rsi_prob": 0.5}, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    train_env = TrainingEnv(env, cfg.episode_length,
+                            dr_draws=DRDraws.sample(gen, cfg.num_envs, env.model.spec))
+    state = train_env.reset(env.reset_draws(gen, cfg.num_envs))
+    assert 0.3 < float((state.info["imitation_i"] > 0).float().mean()) < 0.7
+    ts = ppo.init_training_state(state.obs, env.action_size, cfg, gen, device=cuda)
+    assert ts.net.policy.matmul_dtype == torch.bfloat16
+    before = MK.kernel(env.model.spec).launches
+    ts, state, metrics = ppo.training_step(ts, train_env, env, state, cfg, gen)
+    assert MK.kernel(env.model.spec).launches - before == cfg.unroll_length
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert all(p.dtype == torch.float32 for p in ts.net.parameters())
