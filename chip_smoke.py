@@ -28,7 +28,9 @@ Phases, one JSON line each (a phase that has several kernels prints several):
   6. ppo_step: `train.ppo.training_step` on Joystick("rough_terrain_backlash")
      at the full PPO config (8192 envs, unroll 20, 4 x 32 minibatches of
      256), 2 steps after a warm-up step, every physics step through the
-     heightfield kernel;
+     heightfield kernel; then 10 pairs of steps with the normalizer's
+     moments summed in f64 (the default) and in f32, in alternating order,
+     and `accumulate_moments` alone in each dtype;
   7. cli: `cli.runner.main` at the full PPO config on joystick /
      flat_terrain_backlash into a temporary directory: an initial eval, one
      training step and an eval (num_evals=2), then a resume from the last
@@ -47,7 +49,21 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      eval (num_evals=1), in f32 and again with bf16_matmuls; each .onnx
      against the torch deterministic action of its checkpoint, every
      physics step through the no-head build; and the time of a reset of
-     8192 envs with and without reference-state init.
+     8192 envs with and without reference-state init;
+ 10. bench: the three bench tools through their own `main(argv)`, each
+     printing its JSON line as it comes: `tools.bench_rollout` at 4096 and
+     8192 envs (50 control steps x 2 timed runs, after 2 warm-up runs),
+     `tools.bench_physics` on flat_terrain_backlash, flat_terrain,
+     rough_terrain_backlash and flat_terrain_no_head (4096 envs x 50
+     launches), and `tools.bench_ppo_sustained` on flat_terrain_backlash at
+     327,680 steps (two periods of one full-width training step, three
+     evals);
+ 11. mesh: one full-width training step of `ppo.train` on
+     flat_terrain_backlash from the same seed, four times in turns: without
+     a mesh, twice with a one-rank NCCL mesh (`parallel.mesh.make_mesh
+     ("cuda")`), without again; parameters and normalizer must agree within
+     1e-6 (a one-rank all-reduce is an identity), and each run's rollout
+     and update seconds are printed.
 Then the kernel table, the nvidia-smi line, and `{"ok": true, ...}` last.
 Exits non-zero, printing no result, without a CUDA card or when a phase
 fails. Needs no network; the kernel builds count against the run.
@@ -72,6 +88,15 @@ N_ENVS_DENSE = 1024  # the degenerate partition's check: no training path runs i
 N_SUBSTEPS = 10
 CLI_TASK = "flat_terrain_backlash"
 CLI_STEPS = 163_840  # one training step at the full PPO config
+BENCH_STEPS, BENCH_REPS = 50, 2  # bench_rollout, cut from bench.py's 500 x 3 to fit the run
+# bench_physics: the scenes it runs, each with the kernel build it launches
+BENCH_PHYSICS_BUILDS = {"flat_terrain_backlash": "megakernel_step", "flat_terrain": "megakernel_step_flat_terrain",
+                        "rough_terrain_backlash": "megakernel_step_hfield",
+                        "flat_terrain_no_head": "megakernel_step_flat_terrain_no_head"}
+MESH_TOLERANCE = 1e-6
+# ppo_step: training steps of f64 moment sums (running_stats' default) against
+# f32, in alternating pairs; calls of accumulate_moments alone per turn
+MOMENTS_PAIRS, MOMENTS_CALLS = 10, 200
 # RESULTS.md's no-head recipe (the last round), as the CLI takes it
 NO_HEAD_RECIPE = ["rsi_prob=0.5", "reward_config.scales.progress=6.0",
                   "reward_config.scales.yaw_rate_l1=-3.0", "reward_config.scales.lin_vel_l1=-2.0"]
@@ -280,14 +305,16 @@ def load_modules():
     from open_duck_playground_torch.export import onnx_export, onnx_runtime
     from open_duck_playground_torch.models import loader
     from open_duck_playground_torch.physics import collision, forward, kinematics, megakernel
-    from open_duck_playground_torch.tools import issue_bench
+    from open_duck_playground_torch.parallel import dryrun, mesh
+    from open_duck_playground_torch.tools import bench_physics, bench_ppo_sustained, bench_rollout, issue_bench
     from open_duck_playground_torch.train import checkpoint, config, networks, ppo, running_stats
 
     return types.SimpleNamespace(
         J=joystick, R=randomize, S=standing, W=wrappers, loader=loader, C=collision, F=forward,
         K=kinematics, MK=megakernel, IB=issue_bench, cfg=config, N=networks, ppo=ppo,
         RS=running_stats, cli=runner, CKPT=checkpoint, onnx_export=onnx_export,
-        onnx_runtime=onnx_runtime)
+        onnx_runtime=onnx_runtime, M=mesh, dryrun=dryrun, bench_rollout=bench_rollout,
+        bench_physics=bench_physics, bench_sustained=bench_ppo_sustained)
 
 
 def build_phase(P, models):
@@ -472,7 +499,8 @@ def rollout_phase(P, gen, smi, steps: int) -> int:
     cfg = P.cfg.PPOConfig()
     env = P.J.Joystick("flat_terrain_backlash", device=dev)
     wrapped = P.W.TrainingEnv(env, cfg.episode_length,
-                              dr_draws=P.R.DRDraws.sample(gen, cfg.num_envs, env.model.spec))
+                              dr_draws=P.R.DRDraws.sample(gen, cfg.num_envs, env.model.spec),
+                              randomization_fn=P.R.domain_randomize)
     state = wrapped.reset(env.reset_draws(gen, cfg.num_envs))
     obs_sizes = {k: v.shape[-1] for k, v in state.obs.items()}
     net = P.N.PPONetworks.init(obs_sizes, env.action_size, cfg.policy_hidden_layer_sizes, gen, device=dev)
@@ -590,7 +618,8 @@ def ppo_phase(P, gen, smi) -> int:
     cfg = P.cfg.PPOConfig(num_evals=1)
     env = P.J.Joystick("rough_terrain_backlash", device=dev)
     train_env = P.W.TrainingEnv(env, cfg.episode_length,
-                                dr_draws=P.R.DRDraws.sample(gen, cfg.num_envs, env.model.spec))
+                                dr_draws=P.R.DRDraws.sample(gen, cfg.num_envs, env.model.spec),
+                                randomization_fn=P.R.domain_randomize)
     state = train_env.reset(env.reset_draws(gen, cfg.num_envs))
     ts = ppo.init_training_state(state.obs, env.action_size, cfg, gen, device=dev)
     marks = []
@@ -621,6 +650,7 @@ def ppo_phase(P, gen, smi) -> int:
     count = float(ts.normalizer.count)
     ok = (launches == control_steps and launches_hfield == control_steps and finite and changed
           and count == frames and ts.env_steps == frames)
+    moments = moments_dtype_ab(P, ts, train_env, env, state, cfg, gen, hook, marks)
     emit({"phase": "ppo_step", "task": "rough_terrain_backlash", "envs": cfg.num_envs,
           "unroll_length": cfg.unroll_length, "num_minibatches": cfg.num_minibatches,
           "num_updates_per_batch": cfg.num_updates_per_batch, "batch_size": cfg.batch_size,
@@ -632,12 +662,50 @@ def ppo_phase(P, gen, smi) -> int:
           "update_share": sum(s["update_seconds"] for s in steps) / seconds,
           "env_steps_per_s": n_steps * cfg.steps_per_training_step / seconds,
           "params_changed": changed, "finite": finite, "normalizer_count": count,
-          "frames_seen": frames, "env_steps": ts.env_steps, "ok": ok, "card": smi})
+          "frames_seen": frames, "env_steps": ts.env_steps, "moments_dtype_ab": moments, "ok": ok,
+          "card": smi})
     if not ok:
         raise SystemExit(f"ppo_step failed: {launches} launches for {control_steps} control steps, "
                          f"finite {finite}, params changed {changed}, normalizer count {count} "
                          f"for {frames} frames")
     return launches_hfield
+
+
+def moments_dtype_ab(P, ts, train_env, env, state, cfg, gen, hook, marks) -> dict:
+    """What the normalizer's f64 moment sums cost the single-card path
+    against f32 (the port's sums before data parallelism): MOMENTS_PAIRS
+    pairs of whole training steps, the order alternating (f64 f32, f32 f64,
+    ...), with rollout and update seconds; the update runs the same code
+    under either, so its pairs show the host's spread. Then
+    `accumulate_moments` alone on the rollout's obs, MOMENTS_CALLS
+    synchronized calls per turn, host clock, in turns f64 f32 f32 f64."""
+    zero_f32 = lambda stats: tuple({k: torch.zeros_like(v) for k, v in stats.mean.items()} for _ in range(2))
+    zeros = {"f64": P.RS.zero_moments, "f32": zero_f32}  # accumulate_moments sums in the accumulators' dtype
+    steps = {name: {"rollout": [], "update": []} for name in zeros}
+    for i in range(MOMENTS_PAIRS):
+        for name in (("f64", "f32") if i % 2 == 0 else ("f32", "f64")):
+            with wrapped(P.RS, "zero_moments", lambda orig: zeros[name]):
+                t0 = time.perf_counter()
+                ts, state, metrics = P.ppo.training_step(ts, train_env, env, state, cfg, gen, phase_hook=hook)
+            (_, t_roll), (_, t_upd) = marks[-2:]
+            steps[name]["rollout"].append(t_roll - t0)
+            steps[name]["update"].append(t_upd - t_roll)
+            if not all(np.isfinite(float(v)) for v in metrics.values()):
+                raise SystemExit(f"ppo_step: non-finite metrics with {name} moments: {metrics}")
+    calls = {name: [] for name in zeros}
+    for name in ("f64", "f32", "f32", "f64"):
+        m = zeros[name](ts.normalizer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MOMENTS_CALLS):
+            m = P.RS.accumulate_moments(ts.normalizer, m, state.obs)
+        torch.cuda.synchronize()
+        calls[name].append((time.perf_counter() - t0) / MOMENTS_CALLS * 1e3)
+    quartiles = lambda xs: [float(np.percentile(xs, q)) for q in (25, 50, 75)]
+    return {"pairs": MOMENTS_PAIRS,
+            "seconds_q1_median_q3": {name: {phase: quartiles(xs) for phase, xs in d.items()}
+                                     for name, d in steps.items()},
+            "steps": steps, "accumulate_ms_per_call": calls, "envs": cfg.num_envs}
 
 
 @contextlib.contextmanager
@@ -856,7 +924,8 @@ def standing_phase(P, gen, smi) -> int:
     cfg = P.cfg.PPOConfig(num_evals=1)
     env = P.S.Standing("flat_terrain", config_overrides={"head_direct_targets": True}, device=dev)
     train_env = P.W.TrainingEnv(env, cfg.episode_length,
-                                dr_draws=P.R.DRDraws.sample(gen, cfg.num_envs, env.model.spec))
+                                dr_draws=P.R.DRDraws.sample(gen, cfg.num_envs, env.model.spec),
+                                randomization_fn=P.R.domain_randomize)
     state = train_env.reset(env.reset_draws(gen, cfg.num_envs))
     ts = ppo.init_training_state(state.obs, env.action_size, cfg, gen, device=dev)
     marks = []
@@ -991,6 +1060,116 @@ def no_head_phase(P, gen, smi, spec) -> int:
     return kernel_launches
 
 
+def bench_phase(P, smi, specs) -> dict:
+    """The three bench tools through their `main(argv)`; returns per kernel
+    build (name of `specs`) its launches by tool, counted from 0 at each
+    tool's call."""
+    cfg = P.cfg.PPOConfig()
+    launches = {name: {} for name in specs}
+    failures, runs = [], []
+
+    def call(label, tool, argv, want):
+        """`want`: {build name: launches the tool's run must make}."""
+        P.MK.reset_launches()
+        t0 = time.perf_counter()
+        record = tool.main(argv)
+        seconds = time.perf_counter() - t0
+        got = {name: P.MK.kernel(spec).launches for name, spec in specs.items()}
+        for name, n in got.items():
+            if n:
+                launches[name][label] = n
+        if {k: v for k, v in got.items() if v} != want or P.MK.launches != sum(want.values()):
+            failures.append(f"{label}: launches {got}, want {want}")
+        runs.append({"tool": label, "seconds": seconds, "launches": {k: v for k, v in got.items() if v}})
+        return record
+
+    for envs in (4096, 8192):
+        r = call(f"bench_rollout@{envs}", P.bench_rollout,
+                 ["--envs", str(envs), "--steps", str(BENCH_STEPS), "--reps", str(BENCH_REPS)],
+                 {"megakernel_step": (2 + BENCH_REPS) * BENCH_STEPS})
+        if not (np.isfinite(r["value"]) and r["value"] > 0):
+            failures.append(f"bench_rollout@{envs}: {r}")
+    for task, build in BENCH_PHYSICS_BUILDS.items():
+        r = call(f"bench_physics:{task}", P.bench_physics, ["--task", task, "--envs", "4096", "--steps", "50"],
+                 {build: (2 + P.bench_physics.REPS) * 50})
+        if not (r["finite"] and np.isfinite(r["value"]) and r["value"] > 0):
+            failures.append(f"bench_physics:{task}: {r}")
+    timesteps = 2 * CLI_STEPS
+    eval_steps = cfg.episode_length // cfg.action_repeat
+    r = call("bench_ppo_sustained", P.bench_sustained,
+             ["--task", CLI_TASK, "--timesteps", str(timesteps)],
+             {"megakernel_step": 2 * cfg.k_unrolls * cfg.unroll_length + 3 * eval_steps})
+    chunks = r["chunks"]
+    rewards = [r["initial_eval_episode_reward"]] + [c["eval_episode_reward"] for c in chunks]
+    if ([c["steps"] for c in chunks] != [CLI_STEPS, CLI_STEPS] or not all(np.isfinite(rewards))
+            or not r["value"] > 0):
+        failures.append(f"bench_ppo_sustained: {r}")
+    emit({"phase": "bench", "runs": runs, "bench_rollout": {"steps": BENCH_STEPS, "reps": BENCH_REPS},
+          "sustained_eval_rewards": rewards, "ok": not failures, "card": smi})
+    if failures:
+        raise SystemExit(f"bench failed: {failures}")
+    return launches
+
+
+def mesh_phase(P, smi, spec) -> int:
+    """Full-width training steps from the same seed without a mesh and on a
+    one-rank NCCL mesh, in turns (none, mesh, mesh, none); returns the plane
+    kernel's launches of all four."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = P.cfg.PPOConfig(num_evals=1)
+    env = P.J.Joystick(CLI_TASK, device=dev)
+
+    def train(mesh):
+        phases = []
+        with wrapped(P.ppo, "training_step", phase_timed(phases)):
+            _, (normalizer, net), metrics = P.ppo.train(
+                env, num_timesteps=cfg.steps_per_training_step, config=cfg, device=dev,
+                randomization_fn=P.R.domain_randomize, mesh=mesh)
+        return {"normalizer": normalizer, "net": net, "metrics": metrics, **phases[0]}
+
+    P.MK.reset_launches()
+    runs = [("no_mesh", train(None))]
+    dist.init_process_group(P.M.backend_for(dev), init_method=f"tcp://127.0.0.1:{P.dryrun.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = P.M.make_mesh("cuda")
+        backend = dist.get_backend()
+        dist.all_reduce(torch.zeros(1, device=dev))  # NCCL builds its communicator at the first collective
+        torch.cuda.synchronize()
+        runs += [("mesh", train(mesh)), ("mesh", train(mesh))]
+    finally:
+        dist.destroy_process_group()
+    runs.append(("no_mesh", train(None)))
+    launches, kernel_launches = P.MK.launches, P.MK.kernel(spec).launches
+
+    first = runs[0][1]
+    diffs = []
+    for _, run in runs[1:]:
+        diff = {"params": max(float((a - b).detach().abs().max())
+                              for a, b in zip(first["net"].parameters(), run["net"].parameters()))}
+        for field in ("mean", "std"):
+            ref, got = getattr(first["normalizer"], field), getattr(run["normalizer"], field)
+            diff[f"normalizer_{field}"] = max(float((ref[k] - got[k]).abs().max()) for k in ref)
+        diffs.append(diff)
+    control_steps = len(runs) * cfg.k_unrolls * cfg.unroll_length
+    finite = all(np.isfinite(v) for _, run in runs for v in run["metrics"].values())
+    worst = max(max(d.values()) for d in diffs)
+    ok = (worst <= MESH_TOLERANCE and backend == "nccl" and mesh.world_size == 1 and finite
+          and launches == kernel_launches == control_steps)
+    emit({"phase": "mesh", "task": CLI_TASK, "envs": cfg.num_envs, "backend": backend,
+          "world_size": mesh.world_size, "tolerance": MESH_TOLERANCE,
+          "turns": [name for name, _ in runs], "max_abs_diff_from_first": diffs,
+          "rollout_seconds": [run["rollout_seconds"] for _, run in runs],
+          "update_seconds": [run["update_seconds"] for _, run in runs],
+          "kernel_launches": launches, "expected_launches": control_steps, "finite": finite, "ok": ok,
+          "card": smi})
+    if not ok:
+        raise SystemExit(f"mesh failed: backend {backend}, differences {diffs}, finite {finite}, "
+                         f"{launches} launches ({kernel_launches} of the plane build) for {control_steps}")
+    return kernel_launches
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -1038,6 +1217,12 @@ def main() -> int:
     row_flat["launches_cli"] = cli_phase(P, gen, smi, flat.spec)
     row_nb["launches"] = standing_phase(P, gen, smi)
     row_nh["launches"] = no_head_phase(P, gen, smi, no_head.spec)
+    bench = bench_phase(P, smi, {"megakernel_step": flat.spec, "megakernel_step_flat_terrain": flat_nb.spec,
+                                 "megakernel_step_hfield": rough.spec,
+                                 "megakernel_step_flat_terrain_no_head": no_head.spec})
+    row_flat["launches_mesh"] = mesh_phase(P, smi, flat.spec)
+    for row in (row_flat, row_nb, row_hfield, row_nh):
+        row["launches_bench"] = bench[row["name"]]
 
     for row, label in ((row_flat, "1"), (row_nb, "1f"), (row_hfield, "1h"), (row_dense, "1d"),
                        (row_nh, "1n"), (row_probe, "2")):

@@ -7,6 +7,14 @@ choices and defaults, and the same side effects (TensorBoard scalars when
     python -m open_duck_playground_torch.cli.runner \\
         --env joystick --task flat_terrain_backlash --num_timesteps 300000000
 
+It trains with domain randomization (`envs.randomize.domain_randomize`), as
+the JAX runner asks for it. Under `torchrun` it trains data parallel, one
+card per process (`cuda:LOCAL_RANK`), the envs sharded over the ranks; rank
+0 alone prints and writes checkpoints and .onnx files:
+
+    torchrun --nproc_per_node=8 -m open_duck_playground_torch.cli.runner \\
+        --env joystick --task flat_terrain_backlash --num_timesteps 300000000
+
 Unlike the JAX runner, an error of the ONNX export is not swallowed: the
 writer is pure numpy, so an exception there is a fault to see.
 """
@@ -21,7 +29,9 @@ from pathlib import Path
 
 import torch
 
+from open_duck_playground_torch.envs.randomize import domain_randomize
 from open_duck_playground_torch.export import onnx_export
+from open_duck_playground_torch.parallel import mesh as M
 from open_duck_playground_torch.train import checkpoint as CKPT
 from open_duck_playground_torch.train import ppo
 from open_duck_playground_torch.train.config import PPOConfig
@@ -84,18 +94,24 @@ def ppo_config(**overrides) -> PPOConfig:
 
 
 class Runner:
-    def __init__(self, args: argparse.Namespace, device="cuda"):
+    """`mesh`: train data parallel over its ranks; rank 0 alone prints and
+    writes."""
+
+    def __init__(self, args: argparse.Namespace, device="cuda", mesh=None):
         self.args = args
         self.device = device
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
         self.output_dir = Path.cwd() / Path(args.output_dir)
-        self.output_dir.mkdir(parents=True, exist_ok=True)
+        self.writer = None
+        if self.writes:
+            self.output_dir.mkdir(parents=True, exist_ok=True)
+            try:
+                from tensorboardX import SummaryWriter
 
-        try:
-            from tensorboardX import SummaryWriter
-
-            self.writer = SummaryWriter(log_dir=str(self.output_dir))
-        except ImportError:
-            self.writer = None
+                self.writer = SummaryWriter(log_dir=str(self.output_dir))
+            except ImportError:
+                pass
 
         ppo_overrides, overrides = split_overrides(parse_overrides(args.config_override))
         self.env = build_env(args.env, args.task, overrides, device)
@@ -118,6 +134,8 @@ class Runner:
         self.action_size = self.env.action_size
 
     def progress_callback(self, num_steps: int, metrics: dict) -> None:
+        if not self.writes:
+            return
         if self.writer is not None:
             for k, v in metrics.items():
                 self.writer.add_scalar(k, float(v), num_steps)
@@ -132,6 +150,8 @@ class Runner:
     def policy_params_fn(self, current_step, make_policy, variables, full_state=None) -> None:
         """A checkpoint directory and an .onnx policy named `<date>_<step>`."""
         del make_policy
+        if not self.writes:
+            return
         d = datetime.now().strftime("%Y_%m_%d_%H%M%S")
         path = self.output_dir / f"{d}_{current_step}"
         print(f"Saving checkpoint (step: {current_step}): {path}")
@@ -150,17 +170,20 @@ class Runner:
             num_timesteps=self.num_timesteps,
             config=self.ppo_params,
             device=self.device,
+            randomization_fn=domain_randomize,
             eval_env=self.eval_env,
             progress_fn=self.progress_callback,
             policy_params_fn=self.policy_params_fn,
             restore_checkpoint_path=self.restore_checkpoint_path,
             max_env_steps_per_jit=self.max_env_steps_per_jit,
+            mesh=self.mesh,
         )
 
 
 def main(argv=None, device="cuda"):
     """Parse `argv` and train. `device` is for callers on the CPU (tests);
-    the command line always runs on the card."""
+    the command line always runs on the card. Under `torchrun` with more
+    than one process, data parallel over them (`mesh.distributed_from_env`)."""
     parser = argparse.ArgumentParser(description="Open Duck Mini V2 trainer (PyTorch, CUDA)")
     parser.add_argument("-o", "--output_dir", type=str, default="checkpoints")
     parser.add_argument("--num_timesteps", type=int, default=150_000_000)
@@ -192,7 +215,13 @@ def main(argv=None, device="cuda"):
         "tasks, 4M on rough tasks, 1M on the CPU)",
     )
     args = parser.parse_args(argv)
-    return Runner(args, device).train()
+    initialized = torch.distributed.is_initialized()
+    device, mesh = M.distributed_from_env(device)
+    try:
+        return Runner(args, device, mesh).train()
+    finally:
+        if mesh is not None and not initialized:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -7,12 +7,12 @@ env batch is the leading axis of every tensor instead of a vmap.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from open_duck_playground_torch.envs.env_types import State
-from open_duck_playground_torch.envs.randomize import DRDraws, domain_randomize
+from open_duck_playground_torch.envs.randomize import DRDraws
 from open_duck_playground_torch.physics.types import Data
 
 
@@ -51,18 +51,22 @@ def env_finite(state: State) -> torch.Tensor:
 class TrainingEnv:
     """reset(draws) -> batched State; step(state, action, draws) -> State.
 
-    With `dr_draws` the env runs on a model whose randomized fields carry
-    one value per env. With `action_repeat` n > 1 one step runs the env n
+    With `randomization_fn` and its `dr_draws` (both or neither; the port's
+    is `envs.randomize.domain_randomize`) the env runs on
+    `randomization_fn(env.model, dr_draws)`, a model whose randomized fields
+    carry one value per env; without them on the nominal model. With `action_repeat` n > 1 one step runs the env n
     times on the same action, and `draws` is a sequence of n sets of step
     draws (`step_draws` makes them); the reward is the last repeat's, as in
     the reference."""
 
     def __init__(self, env, episode_length: int, dr_draws: Optional[DRDraws] = None,
-                 action_repeat: int = 1):
+                 action_repeat: int = 1, randomization_fn: Optional[Callable] = None):
         self._env = env
         self._episode_length = episode_length
         self._action_repeat = action_repeat
-        self._model = domain_randomize(env.model, dr_draws) if dr_draws is not None else env.model
+        if (randomization_fn is None) != (dr_draws is None):
+            raise ValueError("randomization_fn and dr_draws go together")
+        self._model = env.model if dr_draws is None else randomization_fn(env.model, dr_draws)
 
     @property
     def env(self):

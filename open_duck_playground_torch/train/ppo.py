@@ -17,8 +17,15 @@ per eval period, an initial eval when `num_evals > 1`, and the hooks called
 once per period with the period's mean metrics. It runs the hooks after the
 period instead of overlapping them with the next one. `bf16_matmuls` puts
 the networks' products in bf16 with f32 results (`networks.MLP`) for the
-rollout's policy and the SGD steps. Not ported yet, and `train` raises on a
-request for it: a device mesh.
+rollout's policy and the SGD steps.
+
+Under a mesh (`parallel.mesh`) each rank steps its shard of the envs and
+the update is the one-process update, up to the order of float sums: every
+rank draws the global random numbers and keeps its slice, the normalizer's
+moments are all-reduced, each minibatch is the global one (each rank holds
+the members in its shard), and the gradients are all-reduced once per SGD
+step, so parameters and Adam state stay replicated. Without a mesh no
+collective runs.
 """
 
 from __future__ import annotations
@@ -31,10 +38,12 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from open_duck_playground_torch.envs.env_types import State
 from open_duck_playground_torch.envs.randomize import DRDraws
 from open_duck_playground_torch.envs.wrappers import EvalEnv, TrainingEnv
+from open_duck_playground_torch.parallel.mesh import Mesh, make_mesh
 from open_duck_playground_torch.train import checkpoint as CKPT
 from open_duck_playground_torch.train import gae, networks as N, running_stats as RS
 from open_duck_playground_torch.train.config import PPOConfig
@@ -168,11 +177,28 @@ def generate_unroll(train_env: TrainingEnv, net: N.PPONetworks, normalizer: RS.R
 
 
 # ------------------------------------------------------------------- loss
+def _absmax(x: torch.Tensor) -> torch.Tensor:
+    """max |x|, 0 for a rank that holds no member of the minibatch."""
+    return x.abs().amax() if x.numel() else x.new_zeros(())
+
+
 def loss_fn(net: N.PPONetworks, normalizer: RS.RunningStats, data: dict,
-            final_obs: Dict[str, torch.Tensor], entropy_noise: torch.Tensor, cfg: PPOConfig):
+            final_obs: Dict[str, torch.Tensor], entropy_noise: torch.Tensor, cfg: PPOConfig,
+            mesh: Optional[Mesh] = None, debug_loss_metrics: bool = False):
     """Clipped-surrogate PPO loss of one minibatch. `data` leaves are
     time-major (T, MB, ...) as the rollout left them, `final_obs` leaves
-    (MB, ...) give the bootstrap value. Returns (total, metrics)."""
+    (MB, ...) give the bootstrap value. Returns (total, metrics, maxima):
+    `metrics` the loss terms (and `debug_loss_metrics`' mean entropy
+    `ent`), `maxima` the other 11 diagnostics of `debug_loss_metrics`, all
+    abs-max values (empty without it). The JAX trainer's names.
+
+    Under a mesh, `data` holds this rank's members of a minibatch of
+    `cfg.batch_size` trajectories (maybe none): advantages are normalized
+    with the whole minibatch's all-reduced mean, then variance about it (the
+    no-mesh path's two passes, so that one rank rounds as no mesh does), and
+    each term is the local sum over the minibatch's count, so the SUM over
+    ranks of `metrics` and of the gradients is the minibatch's, and the MAX
+    over ranks of `maxima`."""
     norm_obs = RS.normalize(normalizer, data["obs"])
     logits = net.policy_logits(norm_obs)
     baseline = net.value(norm_obs)
@@ -188,23 +214,50 @@ def loss_fn(net: N.PPONetworks, normalizer: RS.RunningStats, data: dict,
     vs, advantages = gae.compute_gae(
         truncation=truncation, termination=termination, rewards=rewards, values=baseline,
         bootstrap_value=bootstrap, lambda_=cfg.gae_lambda, discount=cfg.discounting)
+    if mesh is None:
+        mean = torch.mean
+    else:
+        count = float(cfg.unroll_length * cfg.batch_size)
+        mean = lambda x: x.sum() / count
     if cfg.normalize_advantage:
-        # population std, as jnp.std
-        advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
+        if mesh is None:
+            # population std, as jnp.std
+            advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
+        else:
+            (mu,) = mesh.all_reduce([mean(advantages)])
+            (var,) = mesh.all_reduce([mean((advantages - mu) ** 2)])
+            advantages = (advantages - mu) / (torch.sqrt(var) + 1e-8)
     rho = torch.exp(target_lp - behaviour_lp)
     surrogate = rho * advantages
     clipped = torch.clamp(rho, 1 - cfg.clipping_epsilon, 1 + cfg.clipping_epsilon) * advantages
-    policy_loss = -torch.mean(torch.minimum(surrogate, clipped))
+    policy_loss = -mean(torch.minimum(surrogate, clipped))
 
     v_error = vs - baseline
-    v_loss = torch.mean(v_error * v_error) * 0.5 * 0.5
+    v_loss = mean(v_error * v_error) * 0.5 * 0.5
 
-    ent = torch.mean(N.entropy(logits, entropy_noise))
+    ent = mean(N.entropy(logits, entropy_noise))
     entropy_loss = -cfg.entropy_cost * ent
 
     total = policy_loss + v_loss + entropy_loss
-    return total, {"total_loss": total, "policy_loss": policy_loss, "v_loss": v_loss,
-                   "entropy_loss": entropy_loss}
+    metrics = {"total_loss": total, "policy_loss": policy_loss, "v_loss": v_loss,
+               "entropy_loss": entropy_loss}
+    maxima = {}
+    if debug_loss_metrics:
+        metrics["ent"] = ent
+        maxima = dict(
+            obs_absmax=_absmax(data["obs"]["state"]),
+            pobs_absmax=_absmax(data["obs"]["privileged_state"]),
+            normobs_absmax=_absmax(norm_obs["state"]),
+            pnormobs_absmax=_absmax(norm_obs["privileged_state"]),
+            baseline_absmax=_absmax(baseline),
+            bootstrap_absmax=_absmax(bootstrap),
+            vs_absmax=_absmax(vs),
+            adv_absmax=_absmax(advantages),
+            rho_max=_absmax(rho),  # rho > 0
+            lp_absmax=_absmax(target_lp),
+            blp_absmax=_absmax(behaviour_lp),
+        )
+    return total, metrics, maxima
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -232,6 +285,14 @@ def apply_gradients(ts: TrainingState, max_grad_norm: Optional[float]) -> Dict[s
             clip_by_global_norm(grads, max_grad_norm, grad_norm)
     ts.optimizer.step()
     return {"grad_norm": grad_norm, "params_norm": params_norm}
+
+
+def all_reduce_grads(net: N.PPONetworks, mesh: Mesh) -> None:
+    """Every parameter's `.grad` summed over the ranks, in one collective."""
+    params = list(net.parameters())
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    for p, g in zip(params, mesh.all_reduce(grads)):
+        p.grad = g
 
 
 def minibatch(data: dict, final_obs: Dict[str, torch.Tensor], envs: torch.Tensor):
@@ -273,25 +334,59 @@ def sgd_draws(cfg: PPOConfig, action_size: int, generator: torch.Generator) -> S
     return SGDDraws(perms=perms, entropy_noise=noise)
 
 
+def shard_minibatches(perms: torch.Tensor, cfg: PPOConfig, mesh: Mesh):
+    """Per epoch and minibatch, the members of global minibatch i
+    (perm[i*B:(i+1)*B]) whose env lies in this rank's shard, as (their
+    positions in the minibatch, their local trajectory indices): trajectory
+    j*E + e, segment j of env e, is local trajectory j*E_local + e - the
+    shard's first env. A rank may hold no member of a minibatch. One copy
+    to the host and one back per training step."""
+    E, B, nmb = cfg.num_envs, cfg.batch_size, cfg.num_minibatches
+    sl = mesh.env_slice(E)
+    p = perms.cpu().reshape(perms.shape[0], nmb, B)
+    seg, env = p // E, p % E
+    mine = (env >= sl.start) & (env < sl.stop)
+    local = seg * (sl.stop - sl.start) + env - sl.start
+    both = torch.stack([mine.nonzero()[:, 2], local[mine]]).to(perms.device)
+    chunks = both.split(mine.sum(-1).flatten().tolist(), dim=1)
+    return [[(c[0], c[1]) for c in chunks[u * nmb : (u + 1) * nmb]] for u in range(perms.shape[0])]
+
+
 def training_step(ts: TrainingState, train_env: TrainingEnv, env, env_state: State,
                   cfg: PPOConfig, generator: Optional[torch.Generator],
                   unroll: Optional[UnrollDraws] = None, sgd: Optional[SGDDraws] = None,
-                  phase_hook: Optional[Callable[[str], None]] = None):
+                  phase_hook: Optional[Callable[[str], None]] = None, mesh: Optional[Mesh] = None,
+                  debug_loss_metrics: bool = False):
     """One PPO training step: rollout of k * unroll_length steps, normalizer
     update, then num_updates_per_batch epochs of num_minibatches SGD steps.
     The random numbers come from `generator` unless `unroll` and `sgd` give
-    them. Returns (ts, env_state, metrics); the metrics are 0-d tensors (means
-    over the SGD steps, and the rollout's mean reward). `phase_hook` is
-    called with "rollout" and "update" as each phase ends (a caller that
-    times them synchronizes there)."""
+    them; under a `mesh` they are the global draws, of which each rank keeps
+    its slice, and `env_state` is this rank's shard. Returns (ts, env_state,
+    metrics); the metrics are 0-d tensors (means over the SGD steps, and the
+    rollout's mean reward), the same on every rank. `phase_hook` is called
+    with "rollout" and "update" as each phase ends (a caller that times them
+    synchronizes there)."""
     k, T = cfg.k_unrolls, cfg.unroll_length
     if unroll is None:
         unroll = unroll_draws(train_env, cfg.num_envs, k * T, generator)
+    if mesh is not None:
+        sl = mesh.env_slice(cfg.num_envs)
+        unroll = UnrollDraws(action_noise=unroll.action_noise[:, sl],
+                             env=mesh.shard(unroll.env, cfg.num_envs))
     env_state, data, final_obs, moments = generate_unroll(
         train_env, ts.net, ts.normalizer, env_state, unroll, accumulate=cfg.normalize_observations)
+    frames = float(k * cfg.num_envs * T)
+    if mesh is None:
+        reward_mean = data["reward"].mean()
+    else:
+        t1, t2 = moments
+        keys = list(t1)
+        reduced = mesh.all_reduce([t1[key] for key in keys] + [t2[key] for key in keys]
+                                  + [data["reward"].sum(dtype=torch.float64) / frames])
+        moments = dict(zip(keys, reduced)), dict(zip(keys, reduced[len(keys):]))
+        reward_mean = reduced[-1].float()
     if cfg.normalize_observations:
-        ts.normalizer = RS.merge_moments(ts.normalizer, float(k * cfg.num_envs * T), *moments)
-    reward_mean = data["reward"].mean()
+        ts.normalizer = RS.merge_moments(ts.normalizer, frames, *moments)
     if k > 1:
         data, final_obs = to_segments(data, final_obs, k, T)
     if phase_hook is not None:
@@ -299,18 +394,36 @@ def training_step(ts: TrainingState, train_env: TrainingEnv, env, env_state: Sta
 
     if sgd is None:
         sgd = sgd_draws(cfg, env.action_size, generator)
-    collected: Dict[str, List[torch.Tensor]] = {}
-    for perm, epoch_noise in zip(sgd.perms, sgd.entropy_noise):
+    members = None if mesh is None else shard_minibatches(sgd.perms, cfg, mesh)
+    # per SGD step: the loss terms (under a mesh, local parts that SUM over
+    # the ranks), the diagnostics' maxima (MAX over the ranks), and the norms
+    # (after the gradient all-reduce, the same on every rank)
+    collected: List[Dict[str, List[torch.Tensor]]] = [{}, {}, {}]
+    for u, (perm, epoch_noise) in enumerate(zip(sgd.perms, sgd.entropy_noise)):
         for i in range(cfg.num_minibatches):
-            envs = perm[i * cfg.batch_size : (i + 1) * cfg.batch_size]
+            if members is None:
+                envs, noise = perm[i * cfg.batch_size : (i + 1) * cfg.batch_size], epoch_noise[i]
+            else:
+                pos, envs = members[u][i]
+                noise = epoch_noise[i].index_select(1, pos)
             mb, mb_final = minibatch(data, final_obs, envs)
             ts.optimizer.zero_grad(set_to_none=True)
-            total, metrics = loss_fn(ts.net, ts.normalizer, mb, mb_final, epoch_noise[i], cfg)
+            total, metrics, maxima = loss_fn(ts.net, ts.normalizer, mb, mb_final, noise, cfg, mesh,
+                                             debug_loss_metrics)
             total.backward()
-            metrics.update(apply_gradients(ts, cfg.max_grad_norm))
-            for name, v in metrics.items():
-                collected.setdefault(name, []).append(v.detach())
-    out = {name: torch.stack(v).mean() for name, v in collected.items()}
+            if mesh is not None:
+                all_reduce_grads(ts.net, mesh)
+            norms = apply_gradients(ts, cfg.max_grad_norm)
+            for part, values in zip(collected, (metrics, maxima, norms)):
+                for name, v in values.items():
+                    part.setdefault(name, []).append(v.detach())
+    stacked = [{name: torch.stack(v) for name, v in part.items()} for part in collected]
+    if mesh is not None:
+        for part, op in zip(stacked[:2], ("sum", "max")):
+            if part:
+                names = list(part)
+                part.update(zip(names, mesh.all_reduce([part[n] for n in names], op)))
+    out = {name: v.mean() for part in stacked for name, v in part.items()}
     out["reward_mean"] = reward_mean
     ts.env_steps += cfg.steps_per_training_step
     if phase_hook is not None:
@@ -370,11 +483,12 @@ def schedule(num_timesteps: int, num_evals: int, steps_per_training_step: int,
 
 # ------------------------------------------------------------------ train
 def train(environment, num_timesteps: Optional[int] = None, config: Optional[PPOConfig] = None,
-          device="cuda", randomize: bool = True,
+          device="cuda", randomization_fn: Optional[Callable] = None,
           progress_fn: Callable[[int, dict], None] = lambda *a: None,
           eval_env=None, policy_params_fn: Callable = lambda *a, **k: None,
-          restore_checkpoint_path: Optional[str] = None, mesh=None,
-          max_env_steps_per_jit: Optional[int] = 8_192_000, **overrides):
+          restore_checkpoint_path: Optional[str] = None, mesh: Optional[Mesh] = None,
+          max_env_steps_per_jit: Optional[int] = 8_192_000, debug_loss_metrics: bool = False,
+          **overrides):
     """Train `environment` for `num_timesteps` env steps. `overrides`
     replace fields of `config`. Per eval period (and once before training
     when `num_evals > 1`): `progress_fn(env_steps, metrics)` with the
@@ -383,20 +497,31 @@ def train(environment, num_timesteps: Optional[int] = None, config: Optional[PPO
     `policy_params_fn(env_steps, make_policy, variables,
     full_state=(training_state, generator_state))`, both on host copies
     taken before the next period starts. Returns (make_policy,
-    (normalizer, net), metrics)."""
+    (normalizer, net), metrics).
+
+    `randomization_fn(model, DRDraws) -> model` (the port's
+    `envs.randomize.domain_randomize`) trains on per-env randomized models;
+    None, the default, on the nominal model, as the JAX trainer.
+    `debug_loss_metrics` adds the JAX trainer's 12 diagnostics to the loss
+    metrics. `mesh=None` is one process unless `torch.distributed` is
+    initialized, and then the world group on `device` (`make_mesh`): every
+    rank trains its shard of `num_envs`, runs the evaluator and calls the
+    hooks, and all ranks hold the same parameters throughout."""
     cfg = dataclasses.replace(config or PPOConfig(), **overrides)
     num_timesteps = cfg.num_timesteps if num_timesteps is None else num_timesteps
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: mesh")
     cfg.k_unrolls  # raises on a broken rollout contract
+    if mesh is None and dist.is_available() and dist.is_initialized():
+        mesh = make_mesh(device)
+    local = (lambda tree: tree) if mesh is None else (lambda tree: mesh.shard(tree, cfg.num_envs))
 
-    dev = torch.device(device)
+    dev = torch.device(device) if mesh is None else mesh.device
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    spec = environment.model.spec if environment.model is not None else None
-    dr = DRDraws.sample(gen, cfg.num_envs, spec) if randomize and spec is not None else None
-    train_env = TrainingEnv(environment, cfg.episode_length, dr_draws=dr,
-                            action_repeat=cfg.action_repeat)
-    env_state = train_env.reset(environment.reset_draws(gen, cfg.num_envs))
+    dr = None
+    if randomization_fn is not None and environment.model is not None:
+        dr = local(DRDraws.sample(gen, cfg.num_envs, environment.model.spec))
+    train_env = TrainingEnv(environment, cfg.episode_length, dr_draws=dr, action_repeat=cfg.action_repeat,
+                            randomization_fn=randomization_fn if dr is not None else None)
+    env_state = train_env.reset(local(environment.reset_draws(gen, cfg.num_envs)))
     ts = init_training_state(env_state.obs, environment.action_size, cfg, gen, device=dev)
     if restore_checkpoint_path is not None:
         ts, gen_state = CKPT.restore_training_state(restore_checkpoint_path, ts)
@@ -430,7 +555,8 @@ def train(environment, num_timesteps: Optional[int] = None, config: Optional[PPO
         t0 = time.monotonic()
         collected: Dict[str, List[torch.Tensor]] = {}
         for _ in range(n_chunks * chunk_steps):
-            ts, env_state, metrics = training_step(ts, train_env, environment, env_state, cfg, gen)
+            ts, env_state, metrics = training_step(ts, train_env, environment, env_state, cfg, gen,
+                                                   mesh=mesh, debug_loss_metrics=debug_loss_metrics)
             for k, v in metrics.items():
                 collected.setdefault(k, []).append(v)
         all_metrics = {f"training/{k}": float(torch.stack(v).mean()) for k, v in collected.items()}

@@ -10,6 +10,8 @@
 - `main([...], device="cpu")` at a tiny config writes a `<date>_<step>`
   checkpoint directory and an .onnx file per eval, and a run resumed from
   the last checkpoint continues `env_steps`, Adam's step and the generator.
+- The CLI trains with domain randomization, as the JAX runner asks for it
+  (`randomization_fn=self.randomizer`), and evaluates on the nominal model.
 """
 
 import dataclasses
@@ -154,6 +156,25 @@ def test_main_writes_a_checkpoint_and_onnx_per_eval_and_resumes(tmp_path, capsys
     first, last = CKPT.restore(resumed[0]), CKPT.restore(resumed[-1])
     assert last["env_steps"] == 64 and all(float(s["step"]) == 4 for s in last["opt_state"]["state"].values())
     assert torch.equal(first["generator"], raw["generator"])  # the restored generator went on
+
+
+def test_main_trains_randomized_and_evaluates_nominal(tmp_path, monkeypatch):
+    from test_torch_ppo import ModelRecorder
+
+    built = []
+
+    def build(*args, **kwargs):
+        built.append(ModelRecorder(runner_build_env(*args, **kwargs)))
+        return built[-1]
+
+    runner_build_env = runner.build_env
+    monkeypatch.setattr(runner, "build_env", build)
+    _main(tmp_path / "run", "--num_timesteps", "32", "--config_override", "num_evals=2")
+    train_env, eval_env = built
+    assert len(train_env.models) == 1 + 4 and all(m is train_env.models[0] for m in train_env.models)
+    m = train_env.models[0]
+    assert m is not train_env.model and m.body_mass.shape == (8,) + tuple(train_env.model.body_mass.shape)
+    assert eval_env.models and all(x is eval_env.model for x in eval_env.models)
 
 
 def test_unported_task_and_unknown_env_raise():

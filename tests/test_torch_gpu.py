@@ -9,7 +9,9 @@ per env, at the interpret-mode test's tolerances: the max for every env of
 every substep along the kernel's own trajectory, p90 after 10 free-running
 substeps (the 1-iteration Newton solve lets a few envs part later). The
 issue-rate probe against its plain version within 1e-5 after 128 rounds
-(half an ulp per f32 round, all falling the same way, is 7.6e-6).
+(half an ulp per f32 round, all falling the same way, is 7.6e-6). A
+one-rank NCCL mesh against no mesh within 1e-6 (its all-reduces are
+identities); `tools.bench_physics` on every scene gives a finite rate.
 """
 
 import numpy as np
@@ -140,7 +142,8 @@ def test_training_rollout_runs_through_the_kernel(cuda):
     env = Joystick("flat_terrain_backlash", device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(2)
     batch = 256
-    wrapped = TrainingEnv(env, 1000, dr_draws=DRDraws.sample(gen, batch, env.model.spec))
+    wrapped = TrainingEnv(env, 1000, dr_draws=DRDraws.sample(gen, batch, env.model.spec),
+                          randomization_fn=domain_randomize)
     state = wrapped.reset(ResetDraws.sample(gen, batch, env))
     before = MK.launches
     for _ in range(3):
@@ -208,7 +211,8 @@ def test_training_step_runs_on_rough_terrain_through_the_kernel(cuda):
     env = Joystick("rough_terrain_backlash", device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(6)
     train_env = TrainingEnv(env, cfg.episode_length,
-                            dr_draws=DRDraws.sample(gen, cfg.num_envs, env.model.spec))
+                            dr_draws=DRDraws.sample(gen, cfg.num_envs, env.model.spec),
+                            randomization_fn=domain_randomize)
     state = train_env.reset(env.reset_draws(gen, cfg.num_envs))
     ts = ppo.init_training_state(state.obs, env.action_size, cfg, gen, device=cuda)
     before = [p.detach().clone() for p in ts.net.parameters()]
@@ -243,7 +247,8 @@ def test_standing_step_runs_on_flat_terrain_through_the_kernel(cuda):
     env = Standing("flat_terrain", device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(9)
     batch = 256
-    wrapped = TrainingEnv(env, 1000, dr_draws=DRDraws.sample(gen, batch, env.model.spec))
+    wrapped = TrainingEnv(env, 1000, dr_draws=DRDraws.sample(gen, batch, env.model.spec),
+                          randomization_fn=domain_randomize)
     state = wrapped.reset(env.reset_draws(gen, batch))
     before = MK.kernel(env.model.spec).launches
     for _ in range(3):
@@ -289,7 +294,8 @@ def test_no_head_recipe_step_runs_through_the_kernel(cuda):
     env = Joystick("flat_terrain_no_head", config_overrides={"rsi_prob": 0.5}, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(11)
     train_env = TrainingEnv(env, cfg.episode_length,
-                            dr_draws=DRDraws.sample(gen, cfg.num_envs, env.model.spec))
+                            dr_draws=DRDraws.sample(gen, cfg.num_envs, env.model.spec),
+                            randomization_fn=domain_randomize)
     state = train_env.reset(env.reset_draws(gen, cfg.num_envs))
     assert 0.3 < float((state.info["imitation_i"] > 0).float().mean()) < 0.7
     ts = ppo.init_training_state(state.obs, env.action_size, cfg, gen, device=cuda)
@@ -299,3 +305,49 @@ def test_no_head_recipe_step_runs_through_the_kernel(cuda):
     assert MK.kernel(env.model.spec).launches - before == cfg.unroll_length
     assert all(torch.isfinite(v) for v in metrics.values())
     assert all(p.dtype == torch.float32 for p in ts.net.parameters())
+
+
+def test_world_one_nccl_mesh_equals_no_mesh(cuda):
+    """One training step of `ppo.train` without a mesh and on a one-rank
+    NCCL mesh from the same seed: the mesh's code path (global counts,
+    all-reduces that are identities) gives the same parameters and
+    normalizer within 1e-6, one plane-kernel launch per control step each."""
+    import torch.distributed as dist
+
+    from open_duck_playground_torch.envs.randomize import domain_randomize
+    from open_duck_playground_torch.parallel import dryrun, mesh as M
+
+    cfg = PPOConfig(num_envs=256, batch_size=64, num_minibatches=4, unroll_length=5,
+                    num_updates_per_batch=2, num_evals=1)
+    env = Joystick("flat_terrain_backlash", device=cuda)
+
+    def train(mesh):
+        return ppo.train(env, cfg.steps_per_training_step, config=cfg, device=cuda,
+                         randomization_fn=domain_randomize, mesh=mesh)[1]
+
+    before = MK.kernel(env.model.spec).launches
+    normalizer, net = train(None)
+    dist.init_process_group(M.backend_for(cuda), init_method=f"tcp://127.0.0.1:{dryrun.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = M.make_mesh("cuda")
+        assert dist.get_backend() == "nccl" and mesh.world_size == 1
+        mnormalizer, mnet = train(mesh)
+    finally:
+        dist.destroy_process_group()
+    assert MK.kernel(env.model.spec).launches - before == 2 * cfg.unroll_length
+    for a, b in zip(net.parameters(), mnet.parameters()):
+        assert float((a - b).detach().abs().max()) <= 1e-6
+    for field in ("mean", "std"):
+        for k, v in getattr(normalizer, field).items():
+            assert float((v - getattr(mnormalizer, field)[k]).abs().max()) <= 1e-6, (field, k)
+
+
+@pytest.mark.parametrize("task", ["flat_terrain_backlash", "flat_terrain", "rough_terrain_backlash",
+                                  "rough_terrain", "flat_terrain_no_head"])
+def test_bench_physics_runs_on_each_scene(cuda, task):
+    from open_duck_playground_torch.tools import bench_physics
+
+    record = bench_physics.main(["--task", task, "--envs", "1024", "--steps", "5"])
+    assert record["finite"] and np.isfinite(record["value"]) and record["value"] > 0
+    assert record["kernel_launches"] == 5 * bench_physics.REPS and record["device"] == torch.cuda.get_device_name(0)

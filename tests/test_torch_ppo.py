@@ -146,8 +146,8 @@ CFG = PPOConfig(num_envs=16, batch_size=8, num_minibatches=2, unroll_length=6,
                 policy_hidden_layer_sizes=HID_P, value_hidden_layer_sizes=HID_V)
 
 
-def _jax_loss(net, params, normalizer, data, final_obs, ent_key, cfg):
-    """`loss_fn` of open_duck_playground_tpu/train/ppo.py:217-264, which is a
+def _jax_loss(net, params, normalizer, data, final_obs, ent_key, cfg, debug_loss_metrics=False):
+    """`loss_fn` of open_duck_playground_tpu/train/ppo.py:217-287, which is a
     closure of `train` and cannot be called: composed here line for line
     from the package's public functions."""
     norm_obs = JRS.normalize(normalizer, data["obs"])  # :224
@@ -173,8 +173,15 @@ def _jax_loss(net, params, normalizer, data, final_obs, ent_key, cfg):
     ent = jnp.mean(JN.entropy(ent_key, logits))  # :261
     entropy_loss = -cfg.entropy_cost * ent  # :262
     total = policy_loss + v_loss + entropy_loss  # :264
-    return total, {"total_loss": total, "policy_loss": policy_loss, "v_loss": v_loss,
-                   "entropy_loss": entropy_loss}
+    out = {"total_loss": total, "policy_loss": policy_loss, "v_loss": v_loss, "entropy_loss": entropy_loss}
+    if debug_loss_metrics:  # :271-286
+        am = lambda x: jnp.abs(x).max()
+        out.update(obs_absmax=am(data["obs"]["state"]), pobs_absmax=am(data["obs"]["privileged_state"]),
+                   normobs_absmax=am(norm_obs["state"]), pnormobs_absmax=am(norm_obs["privileged_state"]),
+                   baseline_absmax=am(baseline), bootstrap_absmax=am(bootstrap), vs_absmax=am(vs),
+                   adv_absmax=am(advantages), rho_max=rho.max(), lp_absmax=am(target_lp),
+                   blp_absmax=am(behaviour_lp), ent=ent)
+    return total, out
 
 
 @pytest.fixture(scope="module")
@@ -231,12 +238,49 @@ def test_loss_and_gradients_match_jax(loss_case):
     noise = np.asarray(jax.random.normal(ent_key, data["raw_action"].shape, jnp.float32))
     tdata = {k: T_(v) for k, v in data.items() if k != "obs"}
     tdata["obs"] = {k: T_(v) for k, v in data["obs"].items()}
-    total, got = ppo.loss_fn(tnet, tnorm, tdata, {k: T_(v) for k, v in final_obs.items()}, T_(noise), CFG)
+    total, got, maxima = ppo.loss_fn(tnet, tnorm, tdata, {k: T_(v) for k, v in final_obs.items()}, T_(noise),
+                                     CFG)
+    assert maxima == {}
     for k, w in want.items():
         assert float(got[k].detach()) == pytest.approx(float(w), rel=1e-5), k
     total.backward()
     for name, p, g in _param_pairs(tnet, grads):
         assert np.abs(p.grad.numpy() - g).max() <= 1e-4 * np.abs(g).max(), name
+
+
+def test_debug_loss_metrics_match_jax(loss_case):
+    """`debug_loss_metrics`: the JAX trainer's 12 diagnostics (ppo.py:271-286)
+    on the minibatch of `loss_case` with JAX's entropy draw injected, 1e-5
+    relative like the loss terms (the abs-max of the raw obs exactly); and
+    the same metric names from JAX `ppo.train` and the port's on the toy
+    env, where the port refused the option before (TypeError)."""
+    from test_train import PointEnv as JPointEnv
+
+    net, params, normalizer, data, final_obs = loss_case
+    ent_key = jax.random.PRNGKey(9)
+    _, want = _jax_loss(net, params, normalizer, jax.tree.map(jnp.asarray, data),
+                        jax.tree.map(jnp.asarray, final_obs), ent_key, CFG, debug_loss_metrics=True)
+    tnet, tnorm = _port_side(params, normalizer)
+    noise = np.asarray(jax.random.normal(ent_key, data["raw_action"].shape, jnp.float32))
+    tdata = {k: T_(v) for k, v in data.items() if k != "obs"}
+    tdata["obs"] = {k: T_(v) for k, v in data["obs"].items()}
+    _, got, maxima = ppo.loss_fn(tnet, tnorm, tdata, {k: T_(v) for k, v in final_obs.items()}, T_(noise),
+                                 CFG, debug_loss_metrics=True)
+    assert set(got) == {"total_loss", "policy_loss", "v_loss", "entropy_loss", "ent"}
+    assert set(maxima) == {k for k in want if k.endswith("_absmax")} | {"rho_max"} and len(maxima) == 11
+    got.update(maxima)
+    assert set(got) == set(want) and len(want) == 4 + 12
+    for k in ("obs_absmax", "pobs_absmax", "blp_absmax"):
+        assert float(got[k]) == float(want[k]), k
+    for k, w in want.items():
+        assert float(got[k].detach()) == pytest.approx(float(w), rel=1e-5), k
+
+    toy = dict(num_envs=8, episode_length=5, unroll_length=2, num_minibatches=2, batch_size=4,
+               num_updates_per_batch=1, seed=0, policy_hidden_layer_sizes=(4,), value_hidden_layer_sizes=(4,))
+    _, _, jm = JPPO.train(JPointEnv(), num_timesteps=16, debug_loss_metrics=True, **toy)
+    _, _, tm = ppo.train(PointEnv(), 16, device="cpu", debug_loss_metrics=True, **toy)
+    assert set(tm) == set(jm) and {"training/obs_absmax", "training/rho_max", "training/ent"} <= set(tm)
+    assert all(np.isfinite(v) for v in tm.values())
 
 
 @pytest.mark.parametrize("scale", [40.0, 0.02], ids=["norm_above_1", "norm_below_1"])
@@ -308,6 +352,11 @@ def test_k_unroll_segments_match_jax_formulation():
 
 
 def test_config_contract_and_unported_requests():
+    """The rollout contract; and no option of the JAX trainer is refused any
+    more: a mesh is taken, and its world must divide num_envs (JAX
+    ppo.py:119)."""
+    from open_duck_playground_torch.parallel.mesh import Mesh
+
     assert PPOConfig().k_unrolls == 1 and PPOConfig().steps_per_training_step == 8192 * 20
     assert PPOConfig(num_envs=16, batch_size=8, num_minibatches=4).k_unrolls == 2
     assert PPOConfig(action_repeat=2).steps_per_training_step == 2 * 8192 * 20
@@ -315,8 +364,8 @@ def test_config_contract_and_unported_requests():
         PPOConfig(num_envs=16, batch_size=8, num_minibatches=3).k_unrolls
     with pytest.raises(ValueError):
         PPOConfig(num_envs=16, batch_size=4, num_minibatches=2).k_unrolls
-    with pytest.raises(NotImplementedError):  # the one option still to port
-        ppo.train(PointEnv(), 10, device="cpu", num_evals=1, mesh=object())
+    with pytest.raises(ValueError, match="do not shard"):
+        ppo.train(PointEnv(), 10, device="cpu", mesh=Mesh(3, 0, torch.device("cpu")), **TOY)
 
 
 # ----------------------------------------------------------------- toy env
@@ -414,6 +463,73 @@ def test_training_step_k2_contract_and_replayed_draws():
     assert set(ma) == {"total_loss", "policy_loss", "v_loss", "entropy_loss", "grad_norm",
                        "params_norm", "reward_mean"}
     assert all(torch.isfinite(v) for v in ma.values()) and float(ma["total_loss"]) == float(mb["total_loss"])
+
+
+class ModelRecorder:
+    """An env that records the model each reset and step is handed."""
+
+    def __init__(self, env):
+        self.env, self.models = env, []
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def reset(self, draws, model=None):
+        self.models.append(model)
+        return self.env.reset(draws, model=model)
+
+    def step(self, state, action, draws, model=None):
+        self.models.append(model)
+        return self.env.step(state, action, draws, model=model)
+
+
+TINY_JOYSTICK = dict(num_envs=4, episode_length=6, unroll_length=2, num_minibatches=2, batch_size=2,
+                     num_updates_per_batch=1, num_evals=1, policy_hidden_layer_sizes=(8,),
+                     value_hidden_layer_sizes=(8,))
+
+
+def test_train_defaults_to_the_nominal_model():
+    """JAX `train(randomization_fn=None)` trains on the nominal model
+    (ppo.py:92, wrappers.py:65-71): so does the port's, unless given
+    `domain_randomize`, which draws per-env fields from the trainer's
+    generator first (the stream of the port's earlier default)."""
+    from open_duck_playground_torch.envs.joystick import Joystick
+    from open_duck_playground_torch.envs.randomize import DRDraws, domain_randomize
+
+    env = ModelRecorder(Joystick("flat_terrain_backlash", device="cpu"))
+    ppo.train(env, 8, device="cpu", **TINY_JOYSTICK)
+    assert len(env.models) == 1 + 2 and all(m is env.model for m in env.models)
+
+    env.models.clear()
+    ppo.train(env, 8, device="cpu", randomization_fn=domain_randomize, **TINY_JOYSTICK)
+    want = domain_randomize(env.model, DRDraws.sample(torch.Generator().manual_seed(0), 4, env.model.spec))
+    m = env.models[0]
+    assert all(x is m for x in env.models) and m is not env.model
+    assert torch.equal(m.body_mass, want.body_mass) and m.body_mass.shape[0] == 4
+
+
+def test_training_env_randomizes_only_with_its_function():
+    """`TrainingEnv` has no default randomization: `randomization_fn` and
+    `dr_draws` come together (the model `randomization_fn(model, draws)`),
+    or neither comes (the nominal model); one without the other raises."""
+    from open_duck_playground_torch.envs.joystick import Joystick
+    from open_duck_playground_torch.envs.randomize import DRDraws, domain_randomize
+
+    env = Joystick("flat_terrain_backlash", device="cpu")
+    draws = DRDraws.sample(torch.Generator().manual_seed(3), 4, env.model.spec)
+    calls = []
+
+    def randomize(model, d):
+        calls.append(d)
+        return domain_randomize(model, d)
+
+    assert TrainingEnv(env, 10)._model is env.model
+    wrapped = TrainingEnv(env, 10, dr_draws=draws, randomization_fn=randomize)
+    assert calls == [draws] and torch.equal(wrapped._model.body_mass,
+                                            domain_randomize(env.model, draws).body_mass)
+    for kwargs in ({"dr_draws": draws}, {"randomization_fn": domain_randomize}):
+        with pytest.raises(ValueError, match="go together"):
+            TrainingEnv(env, 10, **kwargs)
 
 
 # ----------------------------------------------------------- the schedule

@@ -262,10 +262,10 @@ def test_bf16_loss_and_gradients_match_jax(loss_case):
     tdata["obs"] = {k: T_(v) for k, v in data["obs"].items()}
     tfinal = {k: T_(v) for k, v in final_obs.items()}
     tnet, tnorm = _port_side(params, normalizer)
-    plain, _ = ppo.loss_fn(tnet, tnorm, tdata, tfinal, noise, CFG)
+    plain, _, _ = ppo.loss_fn(tnet, tnorm, tdata, tfinal, noise, CFG)
     for mlp in (tnet.policy, tnet.value_mlp):
         mlp.matmul_dtype = torch.bfloat16
-    total, got = ppo.loss_fn(tnet, tnorm, tdata, tfinal, noise, CFG)
+    total, got, _ = ppo.loss_fn(tnet, tnorm, tdata, tfinal, noise, CFG)
     for k, w in want.items():
         assert float(got[k].detach()) == pytest.approx(float(w), rel=1e-5), k
     assert abs(float(plain.detach()) / float(want["total_loss"]) - 1) > 1e-2  # f32 products are another loss

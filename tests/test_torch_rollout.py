@@ -22,7 +22,7 @@ from open_duck_playground_tpu.envs.wrappers import TrainingEnv as JTrainingEnv
 from open_duck_playground_tpu.train import networks as JN, running_stats as JRS
 
 from open_duck_playground_torch.envs.joystick import Joystick
-from open_duck_playground_torch.envs.randomize import DRDraws
+from open_duck_playground_torch.envs.randomize import DRDraws, domain_randomize
 from open_duck_playground_torch.envs.wrappers import TrainingEnv
 from open_duck_playground_torch.interop import normalizer_from_jax, networks_from_jax, state_from_jax
 from open_duck_playground_torch.train import networks as TN, running_stats as TRS
@@ -61,7 +61,8 @@ def rollout():
                             rng=rng, num_envs=B)
     tenv = Joystick(task="flat_terrain_backlash", device="cpu")
     twrapped = TrainingEnv(tenv, episode_length=1000,
-                           dr_draws=_dr_draws(jenv.model.spec, jax.random.split(rng, B)))
+                           dr_draws=_dr_draws(jenv.model.spec, jax.random.split(rng, B)),
+                           randomization_fn=domain_randomize)
     keys = jax.random.split(rng, B)
     jstate = jax.jit(jwrapped.reset)(keys)
     tstate = twrapped.reset(jax_reset_draws(jenv, keys))
