@@ -50,7 +50,19 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      against the torch deterministic action of its checkpoint, every
      physics step through the no-head build; and the time of a reset of
      8192 envs with and without reference-state init;
- 10. bench: the three bench tools through their own `main(argv)`, each
+ 10. deploy: the part of the deployment path that runs without C-MuJoCo
+     (this machine has no mujoco): every .onnx of phases 7 and 9 through
+     the port's validator (`export.onnx_validate`) before its temporary
+     directory goes, with the ms per file; the native C++ runtime
+     (`export.native_runtime`), built with the host's g++, against the numpy
+     runtime and the torch deterministic action of each file's checkpoint on
+     its 128 eval observations (within 1e-5), with the us per `infer` of
+     both on the host CPU; the 25 reward terms and the imitation reward on
+     the card at 8192 rows against `eval_tools.rewards_numpy` row by row
+     (rtol 2e-5, atol 2e-6); the numpy gait oracle against the torch one
+     (within one f32 ulp); and the eval tools' modules import without
+     mujoco or matplotlib;
+ 11. bench: the three bench tools through their own `main(argv)`, each
      printing its JSON line as it comes: `tools.bench_rollout` at 4096 and
      8192 envs (50 control steps x 2 timed runs, after 2 warm-up runs),
      `tools.bench_physics` on flat_terrain_backlash, flat_terrain,
@@ -58,7 +70,7 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      launches), and `tools.bench_ppo_sustained` on flat_terrain_backlash at
      327,680 steps (two periods of one full-width training step, three
      evals);
- 11. mesh: one full-width training step of `ppo.train` on
+ 12. mesh: one full-width training step of `ppo.train` on
      flat_terrain_backlash from the same seed, four times in turns: without
      a mesh, twice with a one-rank NCCL mesh (`parallel.mesh.make_mesh
      ("cuda")`), without again; parameters and normalizer must agree within
@@ -73,12 +85,14 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -101,6 +115,15 @@ MOMENTS_PAIRS, MOMENTS_CALLS = 10, 200
 NO_HEAD_RECIPE = ["rsi_prob=0.5", "reward_config.scales.progress=6.0",
                   "reward_config.scales.yaw_rate_l1=-3.0", "reward_config.scales.lin_vel_l1=-2.0"]
 ONNX_TOLERANCE = 1e-5
+# deploy: reward terms on the card against their numpy mirrors (the JAX
+# package's own mirror test's tolerances), rows of each; single-observation
+# inference passes per file; the torch gait oracle's table is the f64
+# frames rounded to f32, so it is held within one f32 ulp (relative 2^-23)
+# of the numpy oracle's f64 frames (frame values reach 32, so an absolute
+# gate would be an ulp there and too loose near 0)
+REWARD_RTOL, REWARD_ATOL, DEPLOY_REWARD_ROWS = 2e-5, 2e-6, 8192
+DEPLOY_INFER_REPS = 10
+GAIT_RTOL = 2.0 ** -23
 # Per-env gates of the kernel against its plain version, (p90, max), the
 # interpret-mode test's tolerances (test_megakernel_interpret.py). The
 # kernel steps the envs one substep per launch, 10 times; each substep is
@@ -302,7 +325,7 @@ def load_modules():
 
     from open_duck_playground_torch.cli import runner
     from open_duck_playground_torch.envs import joystick, randomize, standing, wrappers
-    from open_duck_playground_torch.export import onnx_export, onnx_runtime
+    from open_duck_playground_torch.export import onnx_export, onnx_runtime, onnx_validate
     from open_duck_playground_torch.models import loader
     from open_duck_playground_torch.physics import collision, forward, kinematics, megakernel
     from open_duck_playground_torch.parallel import dryrun, mesh
@@ -313,8 +336,8 @@ def load_modules():
         J=joystick, R=randomize, S=standing, W=wrappers, loader=loader, C=collision, F=forward,
         K=kinematics, MK=megakernel, IB=issue_bench, cfg=config, N=networks, ppo=ppo,
         RS=running_stats, cli=runner, CKPT=checkpoint, onnx_export=onnx_export,
-        onnx_runtime=onnx_runtime, M=mesh, dryrun=dryrun, bench_rollout=bench_rollout,
-        bench_physics=bench_physics, bench_sustained=bench_ppo_sustained)
+        onnx_runtime=onnx_runtime, onnx_validate=onnx_validate, M=mesh, dryrun=dryrun,
+        bench_rollout=bench_rollout, bench_physics=bench_physics, bench_sustained=bench_ppo_sustained)
 
 
 def build_phase(P, models):
@@ -792,21 +815,44 @@ def eval_observations(P, task: str, policy, dev):
     return state.obs, env.action_size
 
 
-def onnx_errors(P, onnx_files, obs, action_size: int, dev) -> dict:
+@dataclass
+class DeployInputs:
+    """What the phases that write .onnx files hand to the deploy phase:
+    each file's validator result (summary or error, ms), and its bytes with
+    the observations and torch actions it was checked on."""
+
+    validated: dict = field(default_factory=dict)
+    policies: dict = field(default_factory=dict)
+
+    def keep(self, P, f: pathlib.Path, obs: np.ndarray, action: np.ndarray) -> None:
+        t0 = time.perf_counter()
+        try:
+            result = {"summary": P.onnx_validate.validate_file(str(f))}
+        except P.onnx_validate.OnnxValidationError as e:
+            result = {"error": str(e)}
+        result["ms"] = 1e3 * (time.perf_counter() - t0)
+        self.validated[f.name] = result
+        self.policies[f.name] = (f.read_bytes(), obs, action)
+
+
+def onnx_errors(P, onnx_files, obs, action_size: int, dev, deploy: DeployInputs) -> dict:
     """Per .onnx file, the largest difference of its actions on `obs` from
     the torch deterministic action of its checkpoint (f32 products, as the
-    file's weights are f32)."""
+    file's weights are f32). Each file also goes to `deploy`, while it is
+    still on disk."""
     out = {}
     for f in onnx_files:
         want = checkpoint_policy(P, f.with_suffix(""), obs, action_size, dev)(obs)[0]
-        got = P.onnx_runtime.OnnxPolicy(str(f)).infer(obs["state"].cpu().numpy())
+        state = obs["state"].cpu().numpy()
+        got = P.onnx_runtime.OnnxPolicy(str(f)).infer(state)
         if got.shape != tuple(want.shape):
             raise SystemExit(f"{f.name}: actions of shape {got.shape}, want {tuple(want.shape)}")
         out[f.name] = float(np.abs(got - want.cpu().numpy()).max())
+        deploy.keep(P, f, state, want.cpu().numpy())
     return out
 
 
-def cli_phase(P, gen, smi, spec) -> int:
+def cli_phase(P, gen, smi, spec, deploy: DeployInputs) -> int:
     """The training CLI end to end at the full PPO config; returns the
     launches over both runs of the plane kernel of `spec` (the task's
     model)."""
@@ -861,7 +907,7 @@ def cli_phase(P, gen, smi, spec) -> int:
         # 128 observations from the eval, under the final policy
         final_policy = ppo.make_policy((normalizer, net), deterministic=True)
         obs, action_size = eval_observations(P, CLI_TASK, final_policy, dev)
-        onnx_err = onnx_errors(P, onnx_files, obs, action_size, dev)
+        onnx_err = onnx_errors(P, onnx_files, obs, action_size, dev, deploy)
         last = max(dirs, key=lambda p: int(p.name.rsplit("_", 1)[1]))
         final_err = float((checkpoint_policy(P, last, obs, action_size, dev)(obs)[0]
                            - final_policy(obs)[0]).abs().max())
@@ -976,7 +1022,7 @@ def reset_seconds(P, gen, task: str, overrides, n_envs: int) -> tuple:
     return time.perf_counter() - t0, float((state.info["imitation_i"] > 0).float().mean())
 
 
-def no_head_phase(P, gen, smi, spec) -> int:
+def no_head_phase(P, gen, smi, spec, deploy: DeployInputs) -> int:
     """The no-head training recipe through the CLI at the full PPO config,
     in f32 and with bf16 products: one training step and an eval each, the
     checkpoint and .onnx of each checked; returns the no-head build's
@@ -1010,7 +1056,7 @@ def no_head_phase(P, gen, smi, spec) -> int:
             onnx_files = sorted(out.glob("*.onnx"))
             policy = ppo.make_policy((normalizer, net), deterministic=True)
             obs, action_size = eval_observations(P, task, policy, dev)
-            onnx_err = onnx_errors(P, onnx_files, obs, action_size, dev)
+            onnx_err = onnx_errors(P, onnx_files, obs, action_size, dev, deploy)
             # the returned network's own products against the checkpoint's in f32
             returned_err = float((checkpoint_policy(P, dirs[-1], obs, action_size, dev)(obs)[0]
                                   - policy(obs)[0]).abs().max())
@@ -1109,6 +1155,164 @@ def bench_phase(P, smi, specs) -> dict:
     if failures:
         raise SystemExit(f"bench failed: {failures}")
     return launches
+
+
+def reward_cases(n: int, gen: torch.Generator):
+    """(name, torch term, numpy term, args) of every reward term and of the
+    imitation reward on 14 and 10 joints, at `n` rows: a tensor argument
+    has one row per env, anything else is the same for every env."""
+    from open_duck_playground_torch.envs import imitation, rewards as RT
+    from open_duck_playground_torch.eval_tools import rewards_numpy as RN
+
+    dev = gen.device
+    f = lambda *shape: torch.randn((n, *shape), generator=gen, device=dev)
+    cmd, vel3, pose14, vel14 = f(7), f(3), f(14), f(14)
+    contact = f(2) > 0
+    cases = [
+        ("tracking_lin_vel", (cmd, vel3, 0.2)),
+        ("tracking_ang_vel", (cmd, vel3, 0.2)),
+        ("yaw_rate_l1", (cmd, vel3)),
+        ("lin_vel_l1", (cmd, vel3)),
+        ("forward_progress", (cmd, vel3)),
+        ("torques", (f(14),)),
+        ("action_rate", (f(14), f(14))),
+        ("orientation", (f(3),)),
+        ("stand_still", (cmd * 0.001, pose14, vel14, f(14), True)),
+        ("stand_still", (cmd, pose14, vel14, f(14), False)),
+        ("stand_still", (cmd * 0.001, f(10), f(10), f(10), True)),
+        ("head_pos", (pose14, vel14, cmd)),
+        ("head_pos", (pose14, vel14, cmd, True)),
+        ("head_pos", (f(10), f(10), cmd, True)),
+        ("lin_vel_z", (vel3,)),
+        ("ang_vel_xy", (vel3,)),
+        ("base_height", (f().abs(), 0.15)),
+        ("base_y_swing", (0.1 * f(), 1.5, 0.05, f().abs(), 0.2)),
+        ("energy", (f(20), f(20))),
+        ("joint_pos_limits", (pose14, f(14) - 3, f(14) + 3)),
+        ("termination", (contact[:, 0].float(),)),
+        ("joint_deviation", (pose14, [0, 1, 2, 3, 4], f(14), 1.0)),
+        ("pose", (pose14, f(14), f(14).abs())),
+        ("feet_slip", (contact, f(3))),
+        ("feet_clearance", (f(2, 3), f(2, 3), 0.08)),
+        ("feet_height", (f(2).abs(), contact, 0.1)),
+        ("feet_air_time", (f(2).abs(), contact, cmd)),
+        ("feet_phase", (f(2, 3), f(2))),
+    ]
+    out = [(name, getattr(RT, name), getattr(RN, name), args) for name, args in cases]
+    out.append(("alive", lambda: RT.alive(n, dev), RN.alive, ()))
+    base_qvel, ref_frame = f(6), f(40)
+    out.append(("imitation_reward", imitation.imitation_reward, RN.imitation_reward,
+                (base_qvel, pose14, vel14, contact.float(), ref_frame, cmd)))
+    out.append(("imitation_reward/no_head", imitation.imitation_reward, RN.imitation_reward,
+                (base_qvel, f(10), f(10), contact.float(), ref_frame, cmd, True, 0.05 * f(10))))
+    return out
+
+
+def reward_mirror_errors(n: int, gen: torch.Generator) -> dict:
+    """Per term, the largest |torch - numpy| / (atol + rtol |numpy|) over
+    `n` rows: the batched torch term on the card against the numpy mirror
+    row by row; under 1 is within REWARD_RTOL, REWARD_ATOL."""
+    out = {}
+    for k, (name, torch_fn, np_fn, args) in enumerate(reward_cases(n, gen)):
+        got = torch_fn(*args).double().cpu().numpy()
+        rows = [a.cpu().numpy() if torch.is_tensor(a) else a for a in args]
+        want = np.array([np_fn(*[r[i] if torch.is_tensor(a) else r for a, r in zip(args, rows)])
+                         for i in range(n)], np.float64)
+        ratio = np.abs(got - want) / (REWARD_ATOL + REWARD_RTOL * np.abs(want))
+        out[name if name not in out else f"{name}#{k}"] = float(ratio.max())
+    return out
+
+
+def deploy_phase(P, gen, smi, deploy: DeployInputs) -> None:
+    """What of the deployment path runs without C-MuJoCo: every .onnx file
+    of the cli and no_head phases through the port's validator (done while
+    the files were on disk), the native runtime built with the host's C++
+    compiler against the numpy runtime and the torch action of each file's
+    checkpoint, the reward terms on the card against their numpy mirrors,
+    and the numpy gait oracle against the torch one. Imports no mujoco and
+    no matplotlib."""
+    import importlib
+
+    from open_duck_playground_torch import cuda_build
+    from open_duck_playground_torch.envs.gait_oracle import GaitOracle
+    from open_duck_playground_torch.eval_tools.gait_oracle_numpy import GaitOracleNumpy
+    from open_duck_playground_torch.export import native_runtime
+
+    failures = []
+    # the eval tools load without mujoco or matplotlib (this machine has neither)
+    modules = ["eval_tools.mujoco_runner", "eval_tools.ref_motion_viewer", "eval_tools.plot_obs",
+               "tools.transfer_matrix", "utils.filters"]
+    for m in modules:
+        importlib.import_module(f"open_duck_playground_torch.{m}")
+    if {"mujoco", "matplotlib"} & set(sys.modules):
+        failures.append("importing the eval tools loaded mujoco or matplotlib")
+
+    rejected = {k: v["error"] for k, v in deploy.validated.items() if "error" in v}
+    if len(deploy.validated) != 6 or rejected:
+        failures.append(f"validator: {len(deploy.validated)} files, want 6; rejected {rejected}")
+
+    t0 = time.perf_counter()
+    lib = cuda_build.build(native_runtime.SOURCE, host=True)
+    build_seconds = time.perf_counter() - t0
+    native = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (blob, obs, action) in deploy.policies.items():
+            path = pathlib.Path(tmp) / name
+            path.write_bytes(blob)
+            cc, py = native_runtime.NativeOnnxPolicy(str(path)), P.onnx_runtime.OnnxPolicy(str(path))
+            got_cc = np.stack([cc.infer(o) for o in obs])
+            got_py = np.stack([py.infer(o) for o in obs])
+            row = {"obs": int(obs.shape[0]), "native_vs_numpy": float(np.abs(got_cc - got_py).max()),
+                   "native_vs_torch": float(np.abs(got_cc - action).max()),
+                   "numpy_vs_torch": float(np.abs(got_py - action).max())}
+            if not native:  # per-call times on the first (the main path's) file
+                for label, pol in (("native_us_per_infer", cc), ("numpy_us_per_infer", py)):
+                    t0 = time.perf_counter()
+                    for _ in range(DEPLOY_INFER_REPS):
+                        for o in obs:
+                            pol.infer(o)
+                    row[label] = 1e6 * (time.perf_counter() - t0) / (DEPLOY_INFER_REPS * obs.shape[0])
+            native[name] = row
+    worst = max((max(r["native_vs_numpy"], r["native_vs_torch"], r["numpy_vs_torch"])
+                 for r in native.values()), default=np.inf)
+    if len(native) != 6 or not worst < ONNX_TOLERANCE:
+        failures.append(f"native runtime: {native}")
+
+    t0 = time.perf_counter()
+    rewards = reward_mirror_errors(DEPLOY_REWARD_ROWS, gen)
+    reward_seconds = time.perf_counter() - t0
+    if len(rewards) != 31 or not max(rewards.values()) <= 1.0:
+        failures.append(f"reward mirrors: {rewards}")
+
+    oracle, oracle_np = GaitOracle(device=gen.device), GaitOracleNumpy()
+    grid = np.stack(np.meshgrid(np.linspace(-0.2, 0.2, 5), np.linspace(-0.25, 0.25, 5),
+                                np.linspace(-1.2, 1.2, 5), np.arange(0, 2 * oracle.nb_steps_in_period, 3),
+                                indexing="ij"), -1).reshape(-1, 4)
+    as_t = lambda x, dtype=torch.float32: torch.as_tensor(x, dtype=dtype, device=gen.device)
+    got = oracle.reference_frame(as_t(grid[:, 0]), as_t(grid[:, 1]), as_t(grid[:, 2]),
+                                 as_t(grid[:, 3], torch.int64)).double().cpu().numpy()
+    want = np.stack([oracle_np.reference_frame(dx, dy, dth, int(i)) for dx, dy, dth, i in grid])
+    gait_err = float(np.abs(got - want).max())
+    gait_ulps = float((np.abs(got - want) / (GAIT_RTOL * np.abs(want) + 1e-30)).max())
+    gait_rounded = float((got == want.astype(np.float32)).mean())
+    if not gait_ulps <= 1.0:
+        failures.append(f"gait oracle: {gait_ulps} f32 ulps, {gait_err} absolute")
+
+    emit({"phase": "deploy", "imports_without_mujoco": modules,
+          "validated_files": len(deploy.validated),
+          "validate_ms_per_file": {k: v["ms"] for k, v in deploy.validated.items()},
+          "summaries": {k: {key: v["summary"][key] for key in ("n_nodes", "n_params", "inputs", "outputs")}
+                        for k, v in deploy.validated.items() if "summary" in v},
+          "native_build_seconds": build_seconds, "native_built": lib.build_seconds > 0,
+          "native": native, "onnx_tolerance": ONNX_TOLERANCE,
+          "host_cpus": os.cpu_count(), "note": "infer times are the host CPU's, one observation a call",
+          "reward_rows": DEPLOY_REWARD_ROWS, "reward_worst_over_tolerance": rewards,
+          "reward_rtol": REWARD_RTOL, "reward_atol": REWARD_ATOL, "reward_seconds": reward_seconds,
+          "gait_lookups": len(grid), "gait_max_abs_err": gait_err, "gait_max_f32_ulps": gait_ulps,
+          "gait_share_equal_to_f32_rounding": gait_rounded,
+          "ok": not failures, "card": smi})
+    if failures:
+        raise SystemExit(f"deploy failed: {failures}")
 
 
 def mesh_phase(P, smi, spec) -> int:
@@ -1214,9 +1418,11 @@ def main() -> int:
     row_flat["launches"] = rollout_phase(P, gen, smi, steps=5)
     row_probe = probe_phase(P, gen, smi)
     row_hfield["launches"] = ppo_phase(P, gen, smi)
-    row_flat["launches_cli"] = cli_phase(P, gen, smi, flat.spec)
+    deploy = DeployInputs()
+    row_flat["launches_cli"] = cli_phase(P, gen, smi, flat.spec, deploy)
     row_nb["launches"] = standing_phase(P, gen, smi)
-    row_nh["launches"] = no_head_phase(P, gen, smi, no_head.spec)
+    row_nh["launches"] = no_head_phase(P, gen, smi, no_head.spec, deploy)
+    deploy_phase(P, gen, smi, deploy)
     bench = bench_phase(P, smi, {"megakernel_step": flat.spec, "megakernel_step_flat_terrain": flat_nb.spec,
                                  "megakernel_step_hfield": rough.spec,
                                  "megakernel_step_flat_terrain_no_head": no_head.spec})

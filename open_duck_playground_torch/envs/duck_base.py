@@ -11,7 +11,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
-from open_duck_playground_torch.models import loader
+from open_duck_playground_torch.models import loader, snapshot
 from open_duck_playground_torch.physics import forward as F
 from open_duck_playground_torch.physics.types import Data, Model
 
@@ -24,7 +24,13 @@ TASKS = {
     "flat_terrain_no_head": "scene_flat_terrain_no_head",
 }
 
+# the scene XMLs and the gait library, by path: read by the C-MuJoCo eval
+# tools (`eval_tools/`) and by `models/snapshot.py`, never by training
+XML_DIR = snapshot.XML_DIR
+GAIT_PKL = snapshot.GAIT_PKL
+
 FEET_SITES = ["left_foot", "right_foot"]
+FEET_GEOMS = ["left_foot_bottom_tpu", "right_foot_bottom_tpu"]
 JOINTS_ORDER_NO_HEAD = [
     "left_hip_yaw", "left_hip_roll", "left_hip_pitch", "left_knee", "left_ankle",
     "right_hip_yaw", "right_hip_roll", "right_hip_pitch", "right_knee", "right_ankle",

@@ -14,7 +14,8 @@ Run from the repository root, where `mujoco` is installed:
 
     python -m open_duck_playground_torch.models.snapshot
 
-`mujoco` is imported only by this command, never by the package at run time.
+`mujoco` is imported only by this command and by `compile_mjcf`, which the
+C-MuJoCo eval tools (`eval_tools/`) call; never by the training path.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import argparse
 import json
 import pathlib
 import pickle
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -63,9 +64,13 @@ def _sensor_kinds(mujoco):
     }
 
 
-def _compile(xml_path: pathlib.Path):
+def compile_mjcf(xml_path, timestep: Optional[float] = None):
+    """The C-MuJoCo `MjModel` of the scene at `xml_path`, with the XML files
+    beside it and its `assets/` as the compiler's assets; `timestep`
+    overrides the scene's."""
     import mujoco
 
+    xml_path = pathlib.Path(xml_path)
     assets: Dict[str, bytes] = {}
     for p in sorted(xml_path.parent.glob("*.xml")):
         assets[p.name] = p.read_bytes()
@@ -73,7 +78,10 @@ def _compile(xml_path: pathlib.Path):
     for p in sorted(adir.iterdir()):
         if p.is_file():
             assets[p.name] = p.read_bytes()
-    return mujoco.MjModel.from_xml_string(xml_path.read_text(), assets)
+    mj = mujoco.MjModel.from_xml_string(xml_path.read_text(), assets)
+    if timestep is not None:
+        mj.opt.timestep = timestep
+    return mj
 
 
 def _hull_vertices(mj, geom_id: int) -> np.ndarray:
@@ -272,7 +280,7 @@ def name_tables(mj) -> dict:
 
 
 def write_scene(scene: str, out_dir: pathlib.Path = DATA_DIR) -> None:
-    mj = _compile(XML_DIR / f"{scene}.xml")
+    mj = compile_mjcf(XML_DIR / f"{scene}.xml")
     arrays, spec = model_arrays(mj)
     out_dir.mkdir(parents=True, exist_ok=True)
     np.savez(out_dir / f"{scene}.npz", **arrays)

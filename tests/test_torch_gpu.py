@@ -351,3 +351,79 @@ def test_bench_physics_runs_on_each_scene(cuda, task):
     record = bench_physics.main(["--task", task, "--envs", "1024", "--steps", "5"])
     assert record["finite"] and np.isfinite(record["value"]) and record["value"] > 0
     assert record["kernel_launches"] == 5 * bench_physics.REPS and record["device"] == torch.cuda.get_device_name(0)
+
+
+def test_native_runtime_builds_on_the_host_and_matches_the_policy(cuda, tmp_path):
+    """The deployment runtime of the card's machine: `onnx_mlp.cc` built with
+    the host's C++ compiler into build/host/, on an export of a policy on the
+    card, against the numpy runtime and the torch deterministic action
+    within 1e-5, and accepted by the port's validator."""
+    from open_duck_playground_torch import cuda_build
+    from open_duck_playground_torch.export import native_runtime, onnx_export, onnx_runtime, onnx_validate
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    obs = {"state": torch.randn(32, 101, generator=gen, device=cuda),
+           "privileged_state": torch.randn(32, 212, generator=gen, device=cuda)}
+    ts = ppo.init_training_state(obs, 14, PPOConfig(), gen, device=cuda)
+    path = tmp_path / "policy.onnx"
+    onnx_export.export_policy((ts.normalizer, ts.net), 14, None, 101, str(path))
+    lib = cuda_build.build(native_runtime.SOURCE, host=True)
+    assert lib.path.parent == cuda_build.HOST_BUILD_DIR
+    want = ppo.make_policy((ts.normalizer, ts.net), deterministic=True)(obs)[0].cpu().numpy()
+    state = obs["state"].cpu().numpy()
+    native = np.stack([native_runtime.NativeOnnxPolicy(str(path)).infer(o) for o in state])
+    assert np.abs(native - onnx_runtime.OnnxPolicy(str(path)).infer(state)).max() < 1e-5
+    assert np.abs(native - want).max() < 1e-5
+    assert onnx_validate.validate_file(str(path))["outputs"] == {"continuous_actions": (1, 14)}
+
+
+def test_reward_terms_on_the_card_match_their_numpy_mirrors(cuda):
+    """Every torch reward term and the imitation reward (14 and 10 joints)
+    on CUDA tensors against `eval_tools.rewards_numpy` row by row, at the
+    mirror test's tolerances (rtol 2e-5, atol 2e-6)."""
+    from open_duck_playground_torch.envs import imitation, rewards as RT
+    from open_duck_playground_torch.eval_tools import rewards_numpy as RN
+
+    n = 256
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    f = lambda *shape: torch.randn((n, *shape), generator=gen, device=cuda)
+    cmd, vel3, pose14, vel14, contact = f(7), f(3), f(14), f(14), f(2) > 0
+    cases = [
+        (RT.tracking_lin_vel, RN.tracking_lin_vel, (cmd, vel3, 0.2)),
+        (RT.tracking_ang_vel, RN.tracking_ang_vel, (cmd, vel3, 0.2)),
+        (RT.yaw_rate_l1, RN.yaw_rate_l1, (cmd, vel3)),
+        (RT.lin_vel_l1, RN.lin_vel_l1, (cmd, vel3)),
+        (RT.forward_progress, RN.forward_progress, (cmd, vel3)),
+        (RT.torques, RN.torques, (f(14),)),
+        (RT.action_rate, RN.action_rate, (f(14), f(14))),
+        (RT.orientation, RN.orientation, (f(3),)),
+        (RT.stand_still, RN.stand_still, (cmd * 0.001, pose14, vel14, f(14), True)),
+        (RT.stand_still, RN.stand_still, (cmd * 0.001, f(10), f(10), f(10), True)),
+        (RT.head_pos, RN.head_pos, (pose14, vel14, cmd, True)),
+        (RT.lin_vel_z, RN.lin_vel_z, (vel3,)),
+        (RT.ang_vel_xy, RN.ang_vel_xy, (vel3,)),
+        (RT.base_height, RN.base_height, (f().abs(), 0.15)),
+        (RT.base_y_swing, RN.base_y_swing, (0.1 * f(), 1.5, 0.05, f().abs(), 0.2)),
+        (RT.energy, RN.energy, (f(20), f(20))),
+        (RT.joint_pos_limits, RN.joint_pos_limits, (pose14, f(14) - 3, f(14) + 3)),
+        (RT.termination, RN.termination, (contact[:, 0].float(),)),
+        (RT.joint_deviation, RN.joint_deviation, (pose14, [0, 1, 2, 3, 4], f(14), 1.0)),
+        (RT.pose, RN.pose, (pose14, f(14), f(14).abs())),
+        (RT.feet_slip, RN.feet_slip, (contact, f(3))),
+        (RT.feet_clearance, RN.feet_clearance, (f(2, 3), f(2, 3), 0.08)),
+        (RT.feet_height, RN.feet_height, (f(2).abs(), contact, 0.1)),
+        (RT.feet_air_time, RN.feet_air_time, (f(2).abs(), contact, cmd)),
+        (RT.feet_phase, RN.feet_phase, (f(2, 3), f(2))),
+        (imitation.imitation_reward, RN.imitation_reward,
+         (f(6), pose14, vel14, contact.float(), f(40), cmd)),
+        (imitation.imitation_reward, RN.imitation_reward,
+         (f(6), f(10), f(10), contact.float(), f(40), cmd, True, 0.05 * f(10))),
+    ]
+    for torch_fn, np_fn, args in cases:
+        got = torch_fn(*args)
+        assert got.device.type == "cuda" and got.shape == (n,), torch_fn.__name__
+        rows = [a.cpu().numpy() if torch.is_tensor(a) else a for a in args]
+        want = [np_fn(*[r[i] if torch.is_tensor(a) else r for a, r in zip(args, rows)]) for i in range(n)]
+        np.testing.assert_allclose(got.double().cpu().numpy(), np.asarray(want, np.float64),
+                                   rtol=2e-5, atol=2e-6, err_msg=torch_fn.__name__)
+    assert float(RT.alive(n, cuda).sum()) == n * float(RN.alive())
