@@ -23,8 +23,13 @@ Phases, one JSON line each (a phase that has several kernels prints several):
   4. rollout: the training rollout (TrainingEnv + Joystick on
      flat_terrain_backlash, the 128x4 policy in the loop), 8192 envs x 5
      control steps, every physics step through the plane kernel;
-  5. issue_probe: `tools.issue_bench` over its configs, and the probe
-     kernel against its plain version at a small trip count;
+  5. issue_probe: `tools.issue_bench` over its configs (each checks that
+     its blocks ran on distinct SMs, and gives the SM clock from the
+     kernel's own timers and from the events), the FMA configs again with
+     the constants in the other operand placement, the fma loop's machine
+     code per trip (cuobjdump), every variant, chain count and placement
+     against its plain version at a small trip count, and row 2's timing
+     with the wrapper under `torch.cuda.set_sync_debug_mode("error")`;
   6. ppo_step: `train.ppo.training_step` on Joystick("rough_terrain_backlash")
      at the full PPO config (8192 envs, unroll 20, 4 x 32 minibatches of
      256), 2 steps after a warm-up step, every physics step through the
@@ -366,7 +371,8 @@ def build_phase(P, models):
           "instantiations": len(regs), "registers_per_thread_max": max(regs),
           "stack_bytes_max": max(int(l.split(" bytes stack")[0]) for l in probe.ptxas_lines()
                                  if "bytes stack" in l),
-          "occupancy": "set by the launch: one block of 1-32 warps per SM"})
+          "shared_bytes_reserved_per_block": probe.lib.probe_smem_bytes(),
+          "occupancy": "set by the launch: one block of 1-32 warps per SM, alone on its SM"})
     emit({"phase": "build", "kernel": "all", "parallel_wall_seconds": round(wall, 3)})
     return kernels
 
@@ -565,13 +571,13 @@ def rollout_phase(P, gen, smi, steps: int) -> int:
     return launches
 
 
-# The probe against its plain version: every variant and chain count, one
-# warp per scheduler, PROBE_CHECK_TRIPS trips (128 rounds) from starts in
-# [0.5, 0.6). The plain version accumulates in f64; the kernel rounds every
-# round to f32, half an ulp of 0.5-1 (3e-8 to 6e-8), which over 128 rounds
-# of `fma` or `add` adds up to 3.8e-6 to 7.6e-6 if every rounding falls the
-# same way. `exp` and `sqrt_div` contract to a fixed point and forget
-# earlier roundings.
+# The probe against its plain version: every variant, chain count and
+# operand placement, one warp per scheduler, PROBE_CHECK_TRIPS trips (128
+# rounds) from starts in [0.5, 0.6). The plain version accumulates in f64;
+# the kernel rounds every round to f32, half an ulp of 0.5-1 (3e-8 to
+# 6e-8), which over 128 rounds of `fma` or `add` adds up to 3.8e-6 to
+# 7.6e-6 if every rounding falls the same way. `exp` and `sqrt_div` contract
+# to a fixed point and forget earlier roundings.
 PROBE_CHECK_TRIPS, PROBE_TOLERANCE = 4, 1e-5
 PROBE_ROW = ("fma", 8, 16, 64)  # variant, chains, warps per SM, trips of the row's timing
 
@@ -585,31 +591,73 @@ def probe_phase(P, gen, smi) -> dict:
     launches = IB.launches  # the tool's own path, before any comparison launch
     if launches == 0:
         raise SystemExit("issue_probe: the tool launched no kernel")
+    # the FMA configs (fma, col, narrow) again with a and b in the other place
+    # (`measure` raises if two blocks of any config shared an SM), and the
+    # loop's machine code
+    placed = []
+    for operands in IB.OPERANDS:
+        if operands != IB.DEFAULT_OPERANDS:
+            placed += IB.run_configs([c for c in IB.CONFIGS if c[0] in ("fma", "col", "narrow")], device=dev,
+                                     operands=operands,
+                                     emit=lambda r: emit({"phase": "issue_probe", "card": smi, **r}))
+    sass = IB.sass_report()
+    for r in sass:
+        emit({"phase": "issue_probe", "sass": True, **r})
 
     errs = {}
     for variant in IB.VARIANTS:
         for chains in IB.CHAINS:
-            x = 0.5 + 0.1 * torch.rand((chains, sms * 128), generator=gen, device=dev)
-            got = IB.run(variant, x, PROBE_CHECK_TRIPS)
+            x = 0.5 + 0.1 * torch.rand((chains, sms * IB.per_block(variant, 128)), generator=gen, device=dev)
             want = IB.plain(variant, x, PROBE_CHECK_TRIPS)
-            errs[f"{variant}/{chains}"] = float((got - want).abs().max())
+            for operands in IB.OPERANDS:
+                got = IB.run(variant, x, PROBE_CHECK_TRIPS, operands=operands)
+                errs[f"{variant}/{chains}/{operands}"] = float((got - want).abs().max())
     torch.cuda.synchronize()
     max_err = max(errs.values())
 
     variant, chains, warps, trips = PROBE_ROW
     x = torch.full((chains, sms * 32 * warps), IB.X0, device=dev)
-    ms = cuda_ms(lambda: IB.run(variant, x, trips, 32 * warps), 20)
+
+    def row_run():
+        return IB.run(variant, x, trips, 32 * warps)
+
+    row_run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a synchronising call in `run` raises
+    for _ in range(20):
+        row_run()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the wrapper's host time per launch: 200 launches queued, host clock
+    t0 = time.perf_counter()
+    for _ in range(200):
+        row_run()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    ms = cuda_ms(row_run, 20)
+    # the wrapper as it was before its redesign: a host-to-device copy of the
+    # constants, which synchronises, before every launch
+    ms_copy = cuda_ms(lambda: (torch.as_tensor(IB.constants(variant, chains), device=dev), row_run()), 20)
     plain_ms = cuda_ms(lambda: IB.plain(variant, x, trips), 2)
     nops = x.numel() * trips * IB.ROUNDS * IB.OPS_PER_ROUND[variant]
-    nbytes = 4 * (2 * x.numel() + 2 * chains) + 8 * sms  # x in, x out, constants, cycle counts
+    # x in, x out, the constants, each block's timers
+    nbytes = 4 * (2 * x.numel() + 2 * chains) + 8 * len(IB.TIMERS) * sms
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / F32_FLOPS
-    peak = max(rows, key=lambda r: r["ops_per_clock_per_sm"])
+    peak = max(rows + placed, key=lambda r: r["ops_per_clock_per_sm"])
+    by_placement = {f"{r['variant']}/{r['chains']}/{r['warps_per_sm']}/{r['operands']}": r["ops_per_clock_per_sm"]
+                    for r in rows + placed if r["variant"] in ("fma", "col", "narrow")}
+    clocks = {k: [min(r[k] for r in rows), max(r[k] for r in rows)] for k in ("clock_ghz_kernel", "clock_ghz_events")}
     emit({"phase": "issue_probe", "summary": True, "configs": len(rows), "launches": launches,
           "peak_ops_per_clock_per_sm": peak["ops_per_clock_per_sm"],
-          "peak_config": [peak["variant"], peak["chains"], peak["warps_per_sm"]],
+          "peak_config": [peak["variant"], peak["chains"], peak["warps_per_sm"], peak["operands"]],
           "peak_share_of_67_tflops": peak["share_of_67_tflops"],
+          "placement": {"configs": len(rows) + len(placed), "blocks_per_launch": sms,
+                        "every_block_on_its_own_sm": all(r["distinct_sms"] == r["blocks"] for r in rows + placed)},
+          "clock_ghz_range": clocks, "fma_ops_per_clock_by_variant_chains_warps_operands": by_placement,
+          "sass": [{k: r[k] for k in ("variant", "chains", "operands", "instructions_per_trip",
+                                      "per_trip_by_opcode")} for r in sass],
           "kernel_vs_plain": {"trips": PROBE_CHECK_TRIPS, "tolerance": PROBE_TOLERANCE,
-                              "max_abs_err": max_err, "by_variant_and_chains": errs},
+                              "max_abs_err": max_err, "by_variant_chains_operands": errs},
           "ok": max_err < PROBE_TOLERANCE, "card": smi})
     if not max_err < PROBE_TOLERANCE:
         raise SystemExit(f"issue probe disagrees with its plain version: {errs}")
@@ -628,6 +676,8 @@ def probe_phase(P, gen, smi) -> dict:
         "library_ms": None,
         "library_note": "no single PyTorch call iterates a scalar recurrence in registers",
         "timed_config": dict(zip(("variant", "chains", "warps_per_sm", "trips"), PROBE_ROW)),
+        "ms_with_a_host_copy_per_launch": ms_copy,
+        "host_us_per_run": host_us,
         "bytes": nbytes,
         "f32_ops": nops,
     }

@@ -9,7 +9,8 @@ per env, at the interpret-mode test's tolerances: the max for every env of
 every substep along the kernel's own trajectory, p90 after 10 free-running
 substeps (the 1-iteration Newton solve lets a few envs part later). The
 issue-rate probe against its plain version within 1e-5 after 128 rounds
-(half an ulp per f32 round, all falling the same way, is 7.6e-6). A
+(half an ulp per f32 round, all falling the same way, is 7.6e-6), its
+blocks each on its own SM, and its wrapper free of synchronisations. A
 one-rank NCCL mesh against no mesh within 1e-6 (its all-reduces are
 identities); `tools.bench_physics` on every scene gives a finite rate.
 """
@@ -192,17 +193,42 @@ def test_cuda_hfield_kernel_matches_step_reference(cuda):
 def test_issue_probe_matches_its_plain_version(cuda, variant):
     gen = torch.Generator(device=cuda).manual_seed(5)
     for chains in IB.CHAINS:
-        x = 0.5 + 0.1 * torch.rand((chains, 4 * 96), generator=gen, device=cuda)
-        before = IB.launches
-        cycles = torch.zeros(4, dtype=torch.int64, device=cuda)
-        got = IB.run(variant, x, 4, threads=96, cycles=cycles)
-        assert IB.launches == before + 1 and (cycles > 0).all()
-        assert (got - IB.plain(variant, x, 4)).abs().max() < 1e-5, chains
+        x = 0.5 + 0.1 * torch.rand((chains, 4 * IB.per_block(variant, 96)), generator=gen, device=cuda)
+        for operands in IB.OPERANDS:
+            before = IB.launches
+            timers = torch.zeros((4, len(IB.TIMERS)), dtype=torch.int64, device=cuda)
+            got = IB.run(variant, x, 4, threads=96, timers=timers, operands=operands)
+            assert IB.launches == before + 1
+            assert (timers[:, 2] > timers[:, 1]).all() and (timers[:, 4] >= timers[:, 3]).all()
+            assert (got - IB.plain(variant, x, 4)).abs().max() < 1e-5, (chains, operands)
     assert torch.equal(IB.run(variant, x, 0), x)  # no trips: the loads and stores alone
     with pytest.raises(ValueError):
         IB.run(variant, x[:3], 4)  # 3 chains were not built
     with pytest.raises(TypeError):
         IB.run(variant, x.double(), 4)
+
+
+@pytest.mark.parametrize("variant", ["fma", "narrow"])
+def test_issue_probe_puts_one_block_on_each_sm(cuda, variant):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    x = torch.full((1, sms * IB.per_block(variant, 32)), IB.X0, device=cuda)
+    timers = torch.zeros((sms, len(IB.TIMERS)), dtype=torch.int64, device=cuda)
+    IB.run(variant, x, 8, threads=32, timers=timers)
+    assert len(torch.unique(timers[:, 0])) == sms  # even one warp a block: each alone on its SM
+    assert timers[:, 0].min() >= 0 and timers[:, 0].max() < sms
+
+
+def test_issue_probe_run_does_not_synchronize(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    x = torch.full((8, sms * 512), IB.X0, device=cuda)
+    IB.run("fma", x, 64, threads=512)  # the first use puts the constants on the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [IB.run("fma", x, 64, threads=512) for _ in range(20)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(outs[0], outs[-1])
 
 
 def test_training_step_runs_on_rough_terrain_through_the_kernel(cuda):
