@@ -9,7 +9,8 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      scene, for the heightfield scene (-DMK_HFIELD=1), for the plane scene
      on the degenerate (dense) partition, for the robot without backlash
      joints on the plane (flat_terrain) and for the robot without its head
-     (flat_terrain_no_head), and the issue-rate probe, from csrc/ into
+     (flat_terrain_no_head), the issue-rate probe, and the plane and
+     heightfield builds again with -lineinfo, from csrc/ into
      build/kernels/; each megakernel line carries lanes per env, shared
      bytes per block, local bytes per thread and resident warps per SM;
   3. kernel_vs_plain, kernel_timing: each megakernel build against its plain
@@ -80,7 +81,20 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      a mesh, twice with a one-rank NCCL mesh (`parallel.mesh.make_mesh
      ("cuda")`), without again; parameters and normalizer must agree within
      1e-6 (a one-rank all-reduce is an identity), and each run's rollout
-     and update seconds are printed.
+     and update seconds are printed;
+ 13. profile: the profiling tools through their own `main(argv)`:
+     `tools.profile_step` (4096 envs x 50 steps: physics, env step,
+     training env step, gait oracle, each traced), `tools.profile_train_step`
+     at the full config (its eval cut to 128 envs x 200 steps; one control
+     step and one SGD step traced: launches, host syncs, idle share, top
+     kernels, by layer), every `tools.profile_epoch` variant (the ones that
+     compute the production epoch, the CUDA-graph ones included, within a
+     relative 1e-5 of its parameters), `tools.profile_shuffle` (every
+     permuting strategy equals the production minibatches bit for bit), and
+     `tools.count_kernel_ops`: its FFMA classes against `issue_bench`'s
+     reading of the probe's loops, then `--slots` on every megakernel build
+     and `--by_line` on rows 1 and 1h (whose -lineinfo census must equal
+     the production build's); each megakernel row gets its census.
 Then the kernel table, the nvidia-smi line, and `{"ok": true, ...}` last.
 Exits non-zero, printing no result, without a CUDA card or when a phase
 fails. Needs no network; the kernel builds count against the run.
@@ -113,6 +127,26 @@ BENCH_PHYSICS_BUILDS = {"flat_terrain_backlash": "megakernel_step", "flat_terrai
                         "rough_terrain_backlash": "megakernel_step_hfield",
                         "flat_terrain_no_head": "megakernel_step_flat_terrain_no_head"}
 MESH_TOLERANCE = 1e-6
+# profile: the profiling tools through their main(argv). profile_step at
+# 4096 envs, cut from the JAX tool's 500 chained steps to 50 (3 timed runs);
+# profile_train_step at the full config, its eval cut from 1000 control
+# steps to 200 and timed once; every profile_epoch variant, 1 warm-up + 2
+# timed epochs, each variant that computes the production epoch within a
+# relative 1e-5 of its parameters (max |a - b| over max |b|, all parameters)
+# after one epoch from the same state and draws (float sums in another
+# order; the graph variants' capturable Adam rounds otherwise), and each graph
+# variant within 1e-5 of the same epoch run eagerly with its own Adam;
+# count_kernel_ops --slots on every megakernel build, --by_line on rows 1
+# and 1h (their -lineinfo builds made in phase build)
+PROFILE_STEPS, PROFILE_STEP_REPS = 50, 3
+PROFILE_EVAL_STEPS, PROFILE_TRAIN_REPS = 200, 2
+PROFILE_EPOCH_TOLERANCE = 1e-5
+PROFILE_BY_LINE = ("megakernel_step", "megakernel_step_hfield")
+CENSUS_BUILDS = {"megakernel_step": ("flat_terrain_backlash", False),
+                 "megakernel_step_flat_terrain": ("flat_terrain", False),
+                 "megakernel_step_hfield": ("rough_terrain_backlash", False),
+                 "megakernel_step_dense": ("flat_terrain_backlash", True),
+                 "megakernel_step_flat_terrain_no_head": ("flat_terrain_no_head", False)}
 # ppo_step: training steps of f64 moment sums (running_stats' default) against
 # f32, in alternating pairs; calls of accumulate_moments alone per turn
 MOMENTS_PAIRS, MOMENTS_CALLS = 10, 200
@@ -221,109 +255,6 @@ def active_rows(m, d):
     return contacts, limits
 
 
-def megakernel_work(m, n_envs: int, n_substeps: int, active_contacts: float, active_limits: float,
-                    dense: bool = False):
-    """(bytes, f32 operations, f32 operations of the dense form) the
-    kernel's function needs for one launch.
-
-    Bytes: each per-env input read once and each output written once, and
-    on a heightfield the height table once per launch (all envs share it).
-    Operations: counted from the loops of csrc/megakernel.cuh, one per add,
-    multiply, divide, sqrt, sin or cos, with the data-dependent rows (active
-    contacts and joint limits) at this run's average. The bound is the least
-    time for the function, so each stage is counted in the cheapest of its
-    known forms, whether or not the source takes it: the block-arrow
-    factorization, products and solves on the model's partition (`dense`:
-    on the degenerate one), contact rows as three base rows on the foot's
-    support, and the contact curvature as the lesser of four facet rank-1
-    updates and the folded 3 x 3 form with W J formed once per support
-    column (the source recomputes W J per entry, 17 operations in place of
-    6). The third number is the same function
-    in the dense form (packed 30 x 30 Cholesky twice, four dense facet rows
-    per contact), which earlier tables of PERF.md were counted in."""
-    from open_duck_playground_torch.physics import megakernel as MK
-    from open_duck_playground_torch.physics import structure
-
-    s = m.spec
-    d = MK.kernel_dims(s)
-    nq, nv, nu, nb, nj = s.nq, s.nv, s.nu, s.nbody, s.njnt
-    # qpos qvel ctrl warmstart | qpos0 gain0 bias0-2 frictionloss armature mass ipos mu
-    floats_in = nq + nv + nu + nv + nq + 4 * nu + 2 * nv + nb + 3 * nb + 1
-    floats_out = nq + 3 * nv + s.nsite * 12 + nu + s.ncon_max + s.nsensordata
-    nbytes = 4 * n_envs * (floats_in + floats_out)
-    if s.floor_is_hfield:
-        nbytes += 4 * s.hfield_nrow * s.hfield_ncol
-
-    anc = m.ancestor_mask.cpu().numpy()
-    pred = structure.dof_pred_mask(s)
-    dof_body = list(s.dof_bodyid)
-    rot, qmul, qmat = 27, 28, 30  # quat_rot, quat_mul, quat_mat
-    hinge = sum(1 for j in range(nj) if s.jnt_type[j] == 3)
-    ops = 0
-    ops += (nb - 1) * (rot + 3 + qmul) + hinge * (3 * rot + qmul + 8 + 9) + 14  # FK
-    ops += nb * (rot + 3 + qmul + qmat) + nb * 7 + 3  # xipos, ximat, CoM
-    ops += hinge * 12 + 3 * 15 + qmat  # cdof
-    ops += nb * (3 + 5 + 9 * 3 * 5 + 9 * 4) + (nb - 1) * 13  # body and composite inertias
-    ops += sum(30 + 12 * int(anc[dof_body[i], : i + 1].sum()) for i in range(nv)) + nv  # M
-    ops += 12 * int(anc.sum()) + 12 * int(pred.sum()) + nv * (27 + 6)  # cvel, cdof_dot
-    ops += 12 * int(anc.sum()) + nb * (2 * 33 + 27 + 6) + (nb - 1) * 6 + nv * 14  # RNE
-    ops += nu * 8  # servos
-    nfoot, nvert, frame = len(s.collide_geom_ids), d["NVERT"], 27  # frame: 2 cross, dot, sqrt, 3 div
-    if s.floor_is_hfield:
-        # hfield_height_normal: cell coordinates 8, height 8, slopes 6, unit normal 8, offsets 2
-        height_normal = 32
-        ops += rot + 3 + nfoot * (rot + 3 + qmul) + nfoot * nvert * (rot + 3 + height_normal + 3)
-        ops += s.ncon_max * (height_normal + 6 + frame)  # the chosen vertices: normal again, point, frame
-    else:
-        ops += (nfoot + 1) * (rot + 3 + qmul) + nfoot * nvert * (rot + 8) + frame
-    nlim_act, ncon_act = active_limits, active_contacts
-    foot_dofs = float(np.mean([anc[s.geom_bodyid[g]].sum() for g in s.collide_geom_ids]))
-    ops += d["NFRIC"] * 3 + d["NLIM"] * 30 + s.ncon_max * 40  # row constants, impedances
-    ops += 2 * nv + 3 * nv + 2 * 7 + 30 + 10  # integrate
-    last = s.nsite * (rot + qmul + qmat) + len(s.sensors) * 30 + 12 * int(anc[s.site_bodyid[0]].sum())
-    rows_active = d["NFRIC"] + nlim_act + 4 * ncon_act
-
-    # ---- the solver in the dense form: packed Cholesky, dense facet rows
-    chol = sum((nv - k) + (nv - k - 1) * (nv - k) for k in range(nv)) + nv
-    solve = 2 * nv * nv
-    dense_rows = 4 * ncon_act
-    jx = d["NFRIC"] + nlim_act + dense_rows * 2 * nv  # one J x over the active rows
-    dense_ops = chol + solve  # qacc_smooth
-    dense_ops += ncon_act * (4 * foot_dofs * (9 + 3 + 5 + 2) + 24)  # contact Jacobian rows
-    dense_ops += 2 * (2 * nv * nv + 3 * nv + jx + rows_active * 8)  # two start costs
-    dense_ops += 2 * nv * nv + 2 * nv + jx + rows_active * 6  # gradient
-    dense_ops += dense_rows * (foot_dofs * (foot_dofs + 1))  # Hessian rank-1 updates
-    dense_ops += chol + solve + jx + 2 * nv * nv + 4 * nv  # Newton direction, line data
-    dense_ops += s.ls_iterations * (rows_active * 10 + 6)  # linesearch
-
-    # ---- the solver in the block-arrow form of the source
-    part = MK.partition(s, dense)
-    r, lens = part.root, [e - a for a, e in part.chains]
-    tri = lambda n: n * (n + 1) // 2
-    fac = lambda n: sum(2 + (n - k - 1) + (n - k - 1) * (n - k) for k in range(n))  # sqrt, 1/x, scale, updates
-    chol = sum(fac(n) + sum(r + 2 * r * (n - k - 1) for k in range(n)) for n in lens)  # chains, panels
-    chol += 2 * tri(r) * sum(lens) + fac(r)  # Schur complement, root
-    tri_solve = lambda n: n * (n - 1) + n  # one triangular solve
-    solve = sum(2 * tri_solve(n) + 4 * r * n for n in lens) + 2 * tri_solve(r)
-    nba = d["NBA"] if not dense else tri(nv)
-    symv = 2 * (2 * nba - nv)
-    base = 6 * foot_dofs  # three base rows of one contact times a vector
-    jx = d["NFRIC"] + nlim_act + ncon_act * (base + 8)
-    ba_ops = chol + solve  # qacc_smooth
-    ba_ops += ncon_act * (foot_dofs * 27 + base + 8)  # base rows on the support, facet velocities
-    ba_ops += nv + symv + 2 * nv + 2 * jx + 2 * rows_active * 8  # two start costs (no quadratic term at qacc_smooth)
-    ba_ops += nv + symv + jx + rows_active * 6 + ncon_act * 16  # residuals, g and h, facets folded
-    ba_ops += 2 * (d["NFRIC"] + nlim_act) + ncon_act * base  # gradient and Hessian diagonal, gathered per dof
-    # contact curvature on the support triangle: facet rank-1 updates, or W J
-    # per column (W is 3 x 3 with t1t2 = 0: 11) and 6 per entry
-    ba_ops += ncon_act * min(4 * foot_dofs * (foot_dofs + 1), 11 * foot_dofs + 6 * tri(int(round(foot_dofs))))
-    ba_ops += chol + solve + nv + jx + symv + 4 * nv  # Newton direction, line data
-    ba_ops += s.ls_iterations * (rows_active * 10 + 6)  # linesearch
-
-    total = lambda solver: n_envs * ((ops + solver) * n_substeps + last)
-    return nbytes, total(ba_ops), total(dense_ops)
-
-
 def load_modules():
     """The port's modules, imported after the card is known to be there."""
     import types
@@ -334,7 +265,9 @@ def load_modules():
     from open_duck_playground_torch.models import loader
     from open_duck_playground_torch.physics import collision, forward, kinematics, megakernel
     from open_duck_playground_torch.parallel import dryrun, mesh
-    from open_duck_playground_torch.tools import bench_physics, bench_ppo_sustained, bench_rollout, issue_bench
+    from open_duck_playground_torch.tools import (bench_physics, bench_ppo_sustained, bench_rollout,
+                                                  count_kernel_ops, issue_bench, profile_epoch, profile_shuffle,
+                                                  profile_step, profile_train_step)
     from open_duck_playground_torch.train import checkpoint, config, networks, ppo, running_stats
 
     return types.SimpleNamespace(
@@ -342,19 +275,29 @@ def load_modules():
         K=kinematics, MK=megakernel, IB=issue_bench, cfg=config, N=networks, ppo=ppo,
         RS=running_stats, cli=runner, CKPT=checkpoint, onnx_export=onnx_export,
         onnx_runtime=onnx_runtime, onnx_validate=onnx_validate, M=mesh, dryrun=dryrun,
-        bench_rollout=bench_rollout, bench_physics=bench_physics, bench_sustained=bench_ppo_sustained)
+        bench_rollout=bench_rollout, bench_physics=bench_physics, bench_sustained=bench_ppo_sustained,
+        CK=count_kernel_ops, profile_step=profile_step, profile_train_step=profile_train_step,
+        profile_epoch=profile_epoch, profile_shuffle=profile_shuffle)
 
 
-def build_phase(P, models):
+def build_phase(P, models, lineinfo):
     """nvcc on every kernel source at once: one process per library.
-    `models` maps a kernel's name to (model, dense partition?)."""
+    `models` maps a kernel's name to (model, dense partition?); the builds
+    named in `lineinfo` are built a second time with -lineinfo, for phase
+    `profile`'s census by source line."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(models) + 1) as pool:
+    with ThreadPoolExecutor(len(models) + len(lineinfo) + 1) as pool:
         futures = {name: pool.submit(P.MK.kernel, m.spec, dense) for name, (m, dense) in models.items()}
+        lines = {name: pool.submit(P.CK.lineinfo_library, models[name][0].spec, models[name][1])
+                 for name in lineinfo}
         probe = pool.submit(P.IB.library)
         kernels = {name: f.result() for name, f in futures.items()}
+        lines = {name: f.result() for name, f in lines.items()}
         probe = probe.result()
     wall = time.perf_counter() - t0
+    for name, lib in lines.items():
+        emit({"phase": "build", "kernel": name, "lineinfo": True, "library": lib.path.name,
+              "nvcc_seconds": round(lib.build_seconds, 3)})
     for name, k in kernels.items():
         info = k.info()
         emit({"phase": "build", "kernel": name, "nvcc_seconds": round(k.build_seconds, 3),
@@ -479,7 +422,8 @@ def kernel_phase(P, name, model, gen, replaces, timing_reps, dense=False, n_envs
     ms = cuda_ms(lambda: step(m, d0, ctrl, N_SUBSTEPS), timing_reps)
     plain_ms = cuda_ms(lambda: F.step_reference(m, d0, ctrl, N_SUBSTEPS), 2)
     active_contacts, active_limits = active_rows(m, got)
-    nbytes, nops, dense_ops = megakernel_work(m, n_envs, N_SUBSTEPS, active_contacts, active_limits, dense)
+    nbytes, nops, dense_ops = P.CK.megakernel_work(m, n_envs, N_SUBSTEPS, active_contacts, active_limits,
+                                                   dense)
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / F32_FLOPS
     bound_ms = max(bytes_ms, ops_ms)
     # the same launch at 4x the envs: where the card is full, the time per
@@ -1424,6 +1368,87 @@ def mesh_phase(P, smi, spec) -> int:
                          f"{launches} launches ({kernel_launches} of the plane build) for {control_steps}")
     return kernel_launches
 
+def profile_phase(P, smi, specs, rows) -> int:
+    """The profiling tools through their `main(argv)`, each printing its
+    lines as it comes, with their gates; each megakernel row of `rows`
+    (by build name) gets its census. Returns the plane kernel's launches
+    over the tools' runs."""
+    t_phase = time.perf_counter()
+    failures, runs = [], []
+
+    def call(label, tool, argv):
+        P.MK.reset_launches()
+        t0 = time.perf_counter()
+        record = tool.main(argv)
+        got = {name: P.MK.kernel(spec).launches for name, spec in specs.items() if P.MK.kernel(spec).launches}
+        runs.append({"tool": label, "seconds": time.perf_counter() - t0, "launches": got})
+        emit({"phase": "profile", **runs[-1], "card": smi})
+        return record, got
+
+    def traced_ok(label, traced):
+        for key, t in traced.items():
+            sections = {"whole": t["trace"]["whole"], **t["trace"]["sections"]}
+            empty = [name for name, sec in sections.items() if not sec["kernel_launches"] > 0]
+            if empty:
+                failures.append(f"{label}/{key}: the profiler saw no kernel in {empty}")
+
+    pieces = ("physics", "env_step", "training_env_step")
+    r, got = call("profile_step", P.profile_step, ["--task", CLI_TASK, "--envs", "4096", "--steps",
+                                                   str(PROFILE_STEPS), "--reps", str(PROFILE_STEP_REPS)])
+    # timed runs of each piece, and one step in each of the three traced runs
+    want = len(pieces) * ((PROFILE_STEP_REPS + 1) * PROFILE_STEPS + 3)
+    if got != {"megakernel_step": want} or not r["finite"]:
+        failures.append(f"profile_step: launches {got}, want {want}; finite {r['finite']}")
+    if [r[k]["megakernel_launches_per_step"] for k in (*pieces, "gait_oracle")] != [1, 1, 1, 0]:
+        failures.append(f"profile_step: launches per step {[r[k]['megakernel_launches_per_step'] for k in pieces]}")
+    traced_ok("profile_step", {k: r[k] for k in pieces})
+
+    cfg = P.cfg.PPOConfig()
+    r, got = call("profile_train_step", P.profile_train_step,
+                  ["--task", CLI_TASK, "--eval-steps", str(PROFILE_EVAL_STEPS), "--eval-reps", "1",
+                   "--reps", str(PROFILE_TRAIN_REPS)])
+    T = cfg.unroll_length
+    # rollout and env-only rollout (warm-up + reps), two evals, two training
+    # steps, the traced control step (once untraced, two profiled, one counted)
+    want = 2 * (PROFILE_TRAIN_REPS + 1) * T + 2 * PROFILE_EVAL_STEPS + 2 * T + 4
+    physics = r["traced"]["control_step"]["trace"]["named"][P.profile_train_step.PHYSICS_KERNEL]
+    if got != {"megakernel_step": want} or not r["finite"] or physics["kernel_launches"] != 1:
+        failures.append(f"profile_train_step: launches {got}, want {want}; finite {r['finite']}; "
+                        f"physics kernels in one control step {physics}")
+    traced_ok("profile_train_step", r["traced"])
+
+    r, _ = call("profile_epoch", P.profile_epoch, ["--warmup", "1", "--reps", "2"])
+    for name, v in r["variants"].items():
+        if (not v["finite"] or (v["same_function"] and not v["rel_diff"] <= PROFILE_EPOCH_TOLERANCE)
+                or not v.get("rel_diff_from_eager_capturable_adam", 0) <= PROFILE_EPOCH_TOLERANCE):
+            failures.append(f"profile_epoch {name}: {v}")
+    if set(r["variants"]) != set(P.profile_epoch.VARIANTS):
+        failures.append(f"profile_epoch ran {sorted(r['variants'])}")
+
+    r, _ = call("profile_shuffle", P.profile_shuffle, [])
+    unequal = [k for k, v in r["strategies"].items() if v.get("equal_to_production") is False]
+    if unequal or len([v for v in r["strategies"].values() if "equal_to_production" in v]) != 5:
+        failures.append(f"profile_shuffle: not the production minibatches: {unequal}")
+
+    agreement = P.CK.probe_agreement()
+    emit({"phase": "profile", "tool": "count_kernel_ops", "probe_agreement": agreement, "card": smi})
+    for name, (task, dense) in CENSUS_BUILDS.items():
+        row = rows[name]
+        argv = ["--task", task, "--slots", "--envs", str(row["envs"]),
+                "--contacts", str(row["active_contacts_per_env"]), "--limits", str(row["active_limits_per_env"])]
+        r, _ = call(f"count_kernel_ops:{name}", P.CK, argv + ["--dense"] * dense + ["--by_line"] * (name in PROFILE_BY_LINE))
+        row.update(static_sass_instructions=r["static_instructions"], ffma=r["ffma"]["count"],
+                   ffma_three_register_share=r["ffma"]["three_register_share"], ldl_stl=r["ldl_stl"],
+                   issue_bound_ms=r["slots"]["issue_bound_ms"],
+                   census={"by_class": r["by_class"], "ffma_classes": r["ffma"], "slots": r["slots"],
+                           "by_line_top": r.get("by_line", {}).get("top", [])[:5], "note": r["note"]})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "profile", "summary": True, "runs": runs, "seconds": seconds, "ok": not failures, "card": smi})
+    if failures:
+        raise SystemExit(f"profile failed: {failures}")
+    return sum(run["launches"].get("megakernel_step", 0) for run in runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -1448,7 +1473,8 @@ def main() -> int:
     build_phase(P, {"megakernel_step": (flat, False), "megakernel_step_hfield": (rough, False),
                     "megakernel_step_dense": (flat, True),
                     "megakernel_step_flat_terrain": (flat_nb, False),
-                    "megakernel_step_flat_terrain_no_head": (no_head, False)})
+                    "megakernel_step_flat_terrain_no_head": (no_head, False)},
+                lineinfo=PROFILE_BY_LINE)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     row_flat = kernel_phase(P, "megakernel_step", flat, gen, P.MK.TPU_KERNEL, timing_reps=10)
@@ -1477,6 +1503,11 @@ def main() -> int:
                                  "megakernel_step_hfield": rough.spec,
                                  "megakernel_step_flat_terrain_no_head": no_head.spec})
     row_flat["launches_mesh"] = mesh_phase(P, smi, flat.spec)
+    row_flat["launches_profile"] = profile_phase(
+        P, smi, {"megakernel_step": flat.spec, "megakernel_step_flat_terrain": flat_nb.spec,
+                 "megakernel_step_hfield": rough.spec, "megakernel_step_flat_terrain_no_head": no_head.spec},
+        {"megakernel_step": row_flat, "megakernel_step_flat_terrain": row_nb, "megakernel_step_hfield": row_hfield,
+         "megakernel_step_dense": row_dense, "megakernel_step_flat_terrain_no_head": row_nh})
     for row in (row_flat, row_nb, row_hfield, row_nh):
         row["launches_bench"] = bench[row["name"]]
 

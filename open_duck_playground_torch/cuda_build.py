@@ -20,6 +20,7 @@ import pathlib
 import platform
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from typing import Sequence
@@ -95,7 +96,8 @@ def build(source: str, defines: Sequence[str] = (), headers: Sequence[str] = (),
     log = path.with_suffix(".log")
     seconds = 0.0
     if not path.exists():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        # per process and thread: two builds of one library may run at once
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         t0 = time.perf_counter()
         compiler = host_cxx() if host else nvcc()
         res = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],

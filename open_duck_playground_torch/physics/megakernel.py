@@ -561,14 +561,23 @@ def dim_flags(dims: Dict[str, int]) -> List[str]:
     return [f"-DMK_{k}={v}" for k, v in sorted(dims.items())]
 
 
-class _Kernel:
-    """One built library: its ctypes handle, build time and ptxas report."""
+SOURCE, HEADERS = "megakernel.cu", ("megakernel.cuh",)
 
-    def __init__(self, dims: Dict[str, int], dense: bool = False, source: str = "megakernel.cu"):
+
+def build_flags(dims: Dict[str, int]) -> List[str]:
+    """nvcc's flags of the build for a model of `dims` (beside cuda_build's own)."""
+    return [*dim_flags(dims), f"-I{CSRC}"]
+
+
+class _Kernel:
+    """One built library: its ctypes handle, path, build time and ptxas
+    report."""
+
+    def __init__(self, dims: Dict[str, int], dense: bool = False, source: str = SOURCE):
         self.dims, self.dense = dims, dense
         self.launches = 0
-        built = cuda_build.build(source, [*dim_flags(dims), f"-I{CSRC}"], headers=("megakernel.cuh",))
-        self.build_seconds, self.ptxas = built.build_seconds, built.ptxas_lines()
+        built = cuda_build.build(source, build_flags(dims), headers=HEADERS)
+        self.path, self.build_seconds, self.ptxas = built.path, built.build_seconds, built.ptxas_lines()
         lib = built.lib
         lib.mk_model_size.restype = ctypes.c_int
         lib.mk_shared_size.restype = ctypes.c_int

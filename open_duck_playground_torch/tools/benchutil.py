@@ -1,9 +1,15 @@
-"""What the bench tools share: the device a run measures, a synchronize for
-its clock, and the card's name and power limit."""
+"""What the bench and profiling tools share: the device a run measures, a
+synchronize for its clock, the card's name and power limit, a timer, and
+the trace of a section on the card (kernel launches, host synchronizations,
+device busy time and idle share, the top kernels)."""
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
+import time
+import warnings
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -34,3 +40,169 @@ def card(dev: torch.device) -> str:
                        capture_output=True, text=True, check=True, timeout=60)
     lines = r.stdout.strip().splitlines()
     return lines[dev.index or 0] if len(lines) > (dev.index or 0) else lines[0]
+
+
+def seconds_per_call(fn, dev: torch.device, reps: int = 1, warmup: int = 1) -> float:
+    """Seconds per call of `fn` over `reps` calls after `warmup` untimed
+    ones: on the card CUDA events around the window, which the card is
+    synchronized before and after; on the CPU the host clock."""
+    for _ in range(warmup):
+        fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / 1e3 / reps
+
+
+# --- where a section's time goes on the card --------------------------------
+#
+# A traced function takes `mark`, and wraps its parts in `with mark(name):`.
+# `no_marks` is what it gets when it is timed; `device_trace` and
+# `host_syncs` hand it their own.
+
+SECTION = "odp::"
+COPY_PREFIXES = ("Memcpy", "Memset")
+SYNC_REPORT = "called a synchronizing CUDA operation"
+
+
+def no_marks(name: str):
+    return contextlib.nullcontext()
+
+
+def _profiled(fn, dev: torch.device, mark):
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(SECTION + "whole"):
+            fn(mark)
+            torch.cuda.synchronize(dev)
+    return prof.events()
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _section_stats(ranges, device_events, launched_at, top: int) -> dict:
+    """Launches, copies, device busy and wall ms and the idle share of the
+    device events launched inside `ranges` (host intervals, us);
+    `launched_at(e)` is the host time of e's launch."""
+    inside = [e for e in device_events if any(a <= launched_at(e) <= b for a, b in ranges)]
+    kernels = [e for e in inside if not e.name.startswith(COPY_PREFIXES)]
+    wall = sum(b - a for a, b in ranges)
+    busy = _union_us([(e.time_range.start, min(e.time_range.end, max(b for _, b in ranges)))
+                      for e in inside])
+    by_name: Dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]
+    return {"kernel_launches": len(kernels), "copies": len(inside) - len(kernels),
+            "device_busy_ms": busy / 1e3, "wall_ms": wall / 1e3,
+            "idle_share": 1 - busy / wall if wall > 0 else None,
+            "top_kernels": [{"name": n, "ms": sum(d) / 1e3, "count": len(d)} for n, d in ranked]}
+
+
+def device_trace(fn, dev: torch.device, top: int = 10, named: Sequence[str] = ()) -> Optional[dict]:
+    """Where `fn(mark)`'s time goes on the card, from `torch.profiler` with
+    CPU and CUDA activities: kernel launches, copies, device busy time (the
+    union of the kernel and copy intervals), wall time of the host range,
+    the device's idle share (1 - busy / wall) and the `top` kernels by
+    device time. `whole` is one run with no marks; `sections` a second run
+    in which each `mark(name)` is a profiler range with the card
+    synchronized at both ends, so that its kernels run inside it (sections
+    may nest; each counts what its host code launched). For each substring
+    in `named`, the whole run also reports the launches and device ms of
+    the kernels whose names hold it. `whole["placed_by_launch"]` is the
+    share of device events matched to their launching host call. Raises if
+    the profiler saw no kernel: CUPTI gave no device events, and no share
+    can be read. None on the CPU: there is no device to trace."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import record_function
+
+    def sync_mark(name):
+        @contextlib.contextmanager
+        def cm():
+            torch.cuda.synchronize(dev)
+            with record_function(SECTION + name):
+                yield
+                torch.cuda.synchronize(dev)
+
+        return cm()
+
+    out = {}
+    for key, mark in (("whole", no_marks), ("sections", sync_mark)):
+        events = _profiled(fn, dev, mark)
+        # a record_function range (the optimizer's step, the sections) also
+        # shows as a device-side annotation under its host name: not a kernel
+        host = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name not in host and not getattr(e, "is_user_annotation", False)]
+        if not any(not e.name.startswith(COPY_PREFIXES) for e in device):
+            raise RuntimeError("torch.profiler saw no kernel on the card: CUPTI gave no device events")
+        # a kernel or copy is placed by the host call that launched it (the
+        # runtime call of the same correlation id), not by its start on the
+        # device's clock, which the profiler maps onto the host's only to a
+        # few microseconds
+        launches = {e.id: e.time_range.start for e in events if e.id
+                    and e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(("cuda", "cu"))}
+        launched_at = lambda e: launches.get(e.id, e.time_range.start)
+        ranges: Dict[str, list] = {}
+        for e in events:
+            if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(SECTION):
+                ranges.setdefault(e.name[len(SECTION):], []).append((e.time_range.start, e.time_range.end))
+        if key == "whole":
+            out["whole"] = _section_stats(ranges["whole"], device, launched_at, top)
+            out["whole"]["placed_by_launch"] = sum(e.id in launches for e in device) / len(device)
+            out["named"] = {}
+            for part in named:
+                hits = [e.time_range.end - e.time_range.start for e in device if part in e.name]
+                out["named"][part] = {"kernel_launches": len(hits), "device_ms": sum(hits) / 1e3}
+        else:
+            out["sections"] = {name: _section_stats(r, device, launched_at, top) for name, r in ranges.items()
+                               if name != "whole"}
+    return out
+
+
+def host_syncs(fn, dev: torch.device) -> Optional[dict]:
+    """Host synchronizations of one `fn(mark)`, counted under
+    `torch.cuda.set_sync_debug_mode("warn")`: the whole run, and each
+    `mark(name)` section (sections may nest; each counts what runs inside
+    it). None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    sections: Dict[str, int] = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        # the mode's own first-use notice also speaks of synchronizing
+        # operations: count only the reports of one
+        syncs = lambda: sum(SYNC_REPORT in str(w.message) for w in caught)
+
+        @contextlib.contextmanager
+        def count(name):
+            before = syncs()
+            yield
+            sections[name] = sections.get(name, 0) + syncs() - before
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(count)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return {"whole": syncs(), "sections": sections}

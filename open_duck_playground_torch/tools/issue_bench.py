@@ -316,10 +316,11 @@ _BRANCH = re.compile(r"\bBRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
 _OPCODE = {"fma": "FFMA", "col": "FFMA", "narrow": "FFMA", "add": "FADD"}
 
 
-def parse_sass(text: str) -> Dict[Tuple[str, int, str], List[Tuple[int, str]]]:
-    """`cuobjdump -sass` output -> {(variant, chains, operands): [(address,
-    instruction)]}, with branch targets given by label rewritten to addresses."""
-    kernels: Dict[Tuple[str, int, str], List[Tuple[int, str]]] = {}
+def parse_functions(text: str) -> Dict[str, List[Tuple[int, str]]]:
+    """`cuobjdump -sass` (or `nvdisasm`) output -> {mangled function name:
+    [(address, instruction)]}, with branch targets given by label rewritten
+    to addresses."""
+    functions: Dict[str, List[Tuple[int, str]]] = {}
     body: List[Tuple[int, str]] = []
     labels: Dict[str, int] = {}
     pending: List[str] = []
@@ -334,10 +335,8 @@ def parse_sass(text: str) -> Dict[Tuple[str, int, str], List[Tuple[int, str]]]:
         f = _FUNCTION.search(line)
         if f:
             close()
-            k = _KERNEL.search(f.group(1))
             body, labels, pending = [], {}, []
-            if k:
-                kernels[(VARIANTS[int(k.group(1))], int(k.group(2)), OPERANDS[int(k.group(3))])] = body
+            functions[f.group(1)] = body
             continue
         lab = _LABEL.match(line)
         if lab:
@@ -350,6 +349,17 @@ def parse_sass(text: str) -> Dict[Tuple[str, int, str], List[Tuple[int, str]]]:
             pending = []
             body.append((addr, ins.group(2)))
     close()
+    return functions
+
+
+def parse_sass(text: str) -> Dict[Tuple[str, int, str], List[Tuple[int, str]]]:
+    """The probe's kernels of `cuobjdump -sass` output: {(variant, chains,
+    operands): [(address, instruction)]}."""
+    kernels = {}
+    for name, body in parse_functions(text).items():
+        k = _KERNEL.search(name)
+        if k:
+            kernels[(VARIANTS[int(k.group(1))], int(k.group(2)), OPERANDS[int(k.group(3))])] = body
     return kernels
 
 
@@ -359,14 +369,12 @@ def _split(instr: str) -> Tuple[str, List[str]]:
     return words[0].split(".")[0], re.split(r",\s*", words[1]) if len(words) > 1 else []
 
 
-def loop_report(instrs: List[Tuple[int, str]], variant: str, chains: int) -> Dict:
-    """The hot loop of one kernel (the backward branch whose body holds the
-    most of the variant's operation): instructions per trip by opcode, and
-    the operation's source operands."""
-    op = _OPCODE[variant]
+def hot_loop(instrs: List[Tuple[int, str]], opcode: str) -> List[Tuple[int, str]]:
+    """The body of the backward branch that holds the most `opcode`
+    instructions."""
 
     def n_op(body):
-        return sum(_split(i)[0] == op for _, i in body)
+        return sum(_split(i)[0] == opcode for _, i in body)
 
     best: List[Tuple[int, str]] = []
     for addr, instr in instrs:
@@ -375,6 +383,15 @@ def loop_report(instrs: List[Tuple[int, str]], variant: str, chains: int) -> Dic
             body = [(a, i) for a, i in instrs if int(b.group(2), 16) <= a <= addr]
             if n_op(body) > n_op(best):
                 best = body
+    return best
+
+
+def loop_report(instrs: List[Tuple[int, str]], variant: str, chains: int) -> Dict:
+    """The hot loop of one kernel (the backward branch whose body holds the
+    most of the variant's operation): instructions per trip by opcode, and
+    the operation's source operands."""
+    op = _OPCODE[variant]
+    best = hot_loop(instrs, op)
     counts = Counter(_split(i)[0] for _, i in best)
     trips = counts[op] / (ROUNDS * chains)
     sources = [_split(i)[1][1:] for _, i in best if _split(i)[0] == op]

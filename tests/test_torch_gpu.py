@@ -13,6 +13,11 @@ issue-rate probe against its plain version within 1e-5 after 128 rounds
 blocks each on its own SM, and its wrapper free of synchronisations. A
 one-rank NCCL mesh against no mesh within 1e-6 (its all-reduces are
 identities); `tools.bench_physics` on every scene gives a finite rate.
+The profilers: the CUDA-graph epochs within a relative 1e-5 of the
+production epoch and of the same epoch with the capturable Adam; the SASS
+census of the plane build adds up and its FFMA classes agree with the
+probe's reading; `benchutil.device_trace` sees each section's kernels and
+`host_syncs` counts one copy to the host.
 """
 
 import numpy as np
@@ -453,3 +458,53 @@ def test_reward_terms_on_the_card_match_their_numpy_mirrors(cuda):
         np.testing.assert_allclose(got.double().cpu().numpy(), np.asarray(want, np.float64),
                                    rtol=2e-5, atol=2e-6, err_msg=torch_fn.__name__)
     assert float(RT.alive(n, cuda).sum()) == n * float(RN.alive())
+
+
+def test_profile_epoch_graph_variants_replay_the_eager_epoch(cuda):
+    """The CUDA-graph epochs (k = 1 and 4 minibatch steps per replay)
+    within a relative 1e-5 of the production epoch's parameters (the
+    capturable Adam rounds otherwise), and of the same epoch run eagerly
+    with the capturable Adam."""
+    from open_duck_playground_torch.tools import profile_epoch
+
+    cfg = PPOConfig(num_envs=2048, batch_size=256, num_minibatches=8)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    data, final_obs = profile_epoch.payload(cfg, gen)
+    ts = ppo.init_training_state(final_obs, profile_epoch.ACTION_SIZE, cfg, gen, device=cuda)
+    draws = ppo.sgd_draws(cfg, profile_epoch.ACTION_SIZE, gen)
+    out = profile_epoch.profile(ts, cfg, data, final_obs, draws, ["graph_1", "graph_4"], 0, 1, cuda)
+    for name, v in out.items():
+        assert v["finite"] and v["rel_diff"] <= 1e-5, (name, v)
+        assert v["rel_diff_from_eager_capturable_adam"] <= 1e-5, (name, v)
+
+
+def test_count_kernel_ops_census_of_the_plane_build(cuda):
+    """The census of the built plane kernel adds up, its FFMA classes agree
+    with the probe's SASS reading, and its issue bound is finite."""
+    from open_duck_playground_torch.tools import count_kernel_ops as CK
+
+    r = CK.main(["--slots"])
+    assert r["static_instructions"] > 1000 and sum(r["by_class"].values()) == r["static_instructions"]
+    assert r["ffma"]["count"] == r["by_class"]["FFMA"] == sum(r["ffma"][c] for c in CK.FFMA_CLASSES)
+    assert 0 < r["slots"]["issue_bound_ms"] < 10
+    assert all(row["ok"] for row in CK.probe_agreement())
+
+
+def test_device_trace_sees_kernels_in_each_section(cuda):
+    from open_duck_playground_torch.tools import benchutil
+
+    x = torch.ones(1 << 20, device=cuda)
+
+    def fn(mark):
+        with mark("add"):
+            y = x + 1
+        with mark("mul"):
+            (y * 2).sum()
+        with mark("item"):
+            y.sum().item()  # a copy to the host: one synchronization
+
+    fn(benchutil.no_marks)
+    t = benchutil.device_trace(fn, cuda)
+    assert t["whole"]["kernel_launches"] >= 4 and 0 <= t["whole"]["idle_share"] < 1
+    assert t["sections"]["add"]["kernel_launches"] == 1 and t["sections"]["mul"]["kernel_launches"] >= 2
+    assert benchutil.host_syncs(fn, cuda) == {"whole": 1, "sections": {"add": 0, "mul": 0, "item": 1}}
