@@ -94,7 +94,15 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      `tools.count_kernel_ops`: its FFMA classes against `issue_bench`'s
      reading of the probe's loops, then `--slots` on every megakernel build
      and `--by_line` on rows 1 and 1h (whose -lineinfo census must equal
-     the production build's); each megakernel row gets its census.
+     the production build's); each megakernel row gets its census;
+ 14. learn: `cli.runner.main` at the full PPO config on joystick /
+     flat_terrain_backlash, seed 0, num_evals=2: the initial eval, 40
+     training steps (6,553,600 env steps) and an eval. The second eval's
+     reward must be at least 3x the first and at least LEARN_BAR, a bar
+     set at 70% of the lower of three seeds' readings at that point
+     (PERF.md, "Training outcome on the card"); the line prints both
+     readings and the bar. A trainer that runs but no longer learns (a
+     broken optimizer, reward or normalizer) fails here.
 Then the kernel table, the nvidia-smi line, and `{"ok": true, ...}` last.
 Exits non-zero, printing no result, without a CUDA card or when a phase
 fails. Needs no network; the kernel builds count against the run.
@@ -147,6 +155,13 @@ CENSUS_BUILDS = {"megakernel_step": ("flat_terrain_backlash", False),
                  "megakernel_step_hfield": ("rough_terrain_backlash", False),
                  "megakernel_step_dense": ("flat_terrain_backlash", True),
                  "megakernel_step_flat_terrain_no_head": ("flat_terrain_no_head", False)}
+# learn: 40 training steps between the two evals; the second eval's reward
+# must reach LEARN_GAIN x the first and LEARN_BAR, which is 70% of the lowest
+# of seeds 0, 1, 2's readings at 6,553,600 env steps through the CLI
+# (PERF.md, "Training outcome on the card", NVIDIA H100 80GB HBM3, 700 W)
+LEARN_STEPS = 40 * CLI_STEPS
+LEARN_GAIN = 3.0
+LEARN_BAR = 73.0
 # ppo_step: training steps of f64 moment sums (running_stats' default) against
 # f32, in alternating pairs; calls of accumulate_moments alone per turn
 MOMENTS_PAIRS, MOMENTS_CALLS = 10, 200
@@ -1449,6 +1464,45 @@ def profile_phase(P, smi, specs, rows) -> int:
     return sum(run["launches"].get("megakernel_step", 0) for run in runs)
 
 
+def learn_phase(P, smi, spec) -> int:
+    """The learning gate: a short training run through the CLI at the full
+    PPO config must raise the eval reward past its bars. Returns the plane
+    kernel's launches over the run."""
+    cfg = P.cfg.PPOConfig()
+    evals, eval_metrics = [], []
+    with tempfile.TemporaryDirectory() as tmp, \
+            wrapped(P.ppo, "run_eval", timed(evals, lambda a, r: eval_metrics.append(r))):
+        torch.cuda.synchronize()
+        P.MK.reset_launches()
+        t0 = time.perf_counter()
+        P.cli.main(["--env", "joystick", "--task", CLI_TASK, "--seed", "0", "-o", str(pathlib.Path(tmp) / "run"),
+                    "--num_timesteps", str(LEARN_STEPS), "--config_override", "num_evals=2"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, kernel_launches = P.MK.launches, P.MK.kernel(spec).launches
+        launches_hfield = P.MK.launches_hfield
+    eval_steps = cfg.episode_length // cfg.action_repeat
+    training_steps = LEARN_STEPS // cfg.steps_per_training_step
+    want_launches = (2 * eval_steps + training_steps * cfg.k_unrolls * cfg.unroll_length) * cfg.action_repeat
+    rewards = [m["eval/episode_reward"] for m in eval_metrics]
+    failures = []
+    if len(rewards) != 2 or not all(np.isfinite(v) for m in eval_metrics for v in m.values()):
+        failures.append(f"evals {eval_metrics}")
+    elif not (rewards[1] >= LEARN_GAIN * rewards[0] and rewards[1] >= LEARN_BAR):
+        failures.append(f"eval reward {rewards[0]} -> {rewards[1]}: want x{LEARN_GAIN} and >= {LEARN_BAR}")
+    if launches != want_launches or kernel_launches != launches or launches_hfield != 0:
+        failures.append(f"{launches} launches ({kernel_launches} of the {CLI_TASK} build), want {want_launches}")
+    emit({"phase": "learn", "task": CLI_TASK, "seed": 0, "envs": cfg.num_envs, "env_steps": LEARN_STEPS,
+          "training_steps": training_steps, "eval_reward": rewards,
+          "eval_reward_std": [m["eval/episode_reward_std"] for m in eval_metrics],
+          "gain": rewards[1] / rewards[0] if len(rewards) == 2 else None, "gain_min": LEARN_GAIN,
+          "bar": LEARN_BAR, "seconds": seconds, "seconds_per_eval": evals,
+          "kernel_launches": launches, "expected_launches": want_launches, "ok": not failures, "card": smi})
+    if failures:
+        raise SystemExit(f"learn failed: {failures}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -1510,6 +1564,7 @@ def main() -> int:
          "megakernel_step_dense": row_dense, "megakernel_step_flat_terrain_no_head": row_nh})
     for row in (row_flat, row_nb, row_hfield, row_nh):
         row["launches_bench"] = bench[row["name"]]
+    row_flat["launches_learn"] = learn_phase(P, smi, flat.spec)
 
     for row, label in ((row_flat, "1"), (row_nb, "1f"), (row_hfield, "1h"), (row_dense, "1d"),
                        (row_nh, "1n"), (row_probe, "2")):
