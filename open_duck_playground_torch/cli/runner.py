@@ -3,6 +3,9 @@
 Counterpart of `open_duck_playground_tpu/cli/runner.py`: the same flags,
 choices and defaults, and the same side effects (TensorBoard scalars when
 `tensorboardX` is installed, a full checkpoint and an ONNX export per eval).
+It also appends every progress call's metrics to `<output_dir>/metrics.jsonl`,
+one JSON object per line with `env_steps` and `wall_s` (seconds since the
+Runner was built), so that a machine without `tensorboardX` keeps them too.
 
     python -m open_duck_playground_torch.cli.runner \\
         --env joystick --task flat_terrain_backlash --num_timesteps 300000000
@@ -24,6 +27,8 @@ from __future__ import annotations
 import argparse
 import ast
 import dataclasses
+import json
+import time
 from datetime import datetime
 from pathlib import Path
 
@@ -103,6 +108,8 @@ class Runner:
         self.mesh = mesh
         self.writes = mesh is None or mesh.rank == 0
         self.output_dir = Path.cwd() / Path(args.output_dir)
+        self.metrics_log = self.output_dir / "metrics.jsonl"
+        self.t0 = time.time()
         self.writer = None
         if self.writes:
             self.output_dir.mkdir(parents=True, exist_ok=True)
@@ -139,6 +146,10 @@ class Runner:
         if self.writer is not None:
             for k, v in metrics.items():
                 self.writer.add_scalar(k, float(v), num_steps)
+        rec = {"env_steps": int(num_steps), "wall_s": time.time() - self.t0,
+               **{k: float(v) for k, v in metrics.items()}}
+        with open(self.metrics_log, "a") as f:
+            f.write(json.dumps(rec) + "\n")
         if "eval/episode_reward" in metrics:
             print("-----------")
             print(

@@ -35,7 +35,7 @@ import dataclasses
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -432,23 +432,38 @@ def training_step(ts: TrainingState, train_env: TrainingEnv, env, env_state: Sta
 
 
 # ------------------------------------------------------------------- eval
+@dataclass(frozen=True)
+class EvalDraws:
+    """The random numbers of one evaluation of `length` control steps."""
+
+    reset: Any  # the env's reset draws
+    action_noise: Optional[torch.Tensor]  # (length, num_envs, action_size); None when deterministic
+    env: Sequence  # length step draws of the eval env
+
+
 def run_eval(eval_env: EvalEnv, variables, num_envs: int, length: int, deterministic: bool,
-             generator: torch.Generator) -> Dict[str, float]:
+             generator: Optional[torch.Generator], draws: Optional[EvalDraws] = None
+             ) -> Dict[str, float]:
     """`num_envs` fresh episodes of `length` control steps under the policy
-    of `variables`, with `generator`'s random numbers. Returns the mean and
-    std episode reward, the mean length, the tracking errors as per-step
-    means and every other env metric as an episode sum (ppo.py:423-455 of
-    the JAX package)."""
+    of `variables`, with `generator`'s random numbers unless `draws` gives
+    them. Returns the mean and std episode reward, the mean length, the
+    tracking errors as per-step means and every other env metric as an
+    episode sum (ppo.py:423-455 of the JAX package)."""
     policy = make_policy(variables, deterministic)
     act = eval_env.action_size
-    dev = generator.device
     with torch.no_grad():
-        state = eval_env.reset(eval_env.env.reset_draws(generator, num_envs))
-        for _ in range(length):
-            noise = None if deterministic else torch.randn((num_envs, act), generator=generator,
-                                                           device=dev)
+        state = eval_env.reset(eval_env.env.reset_draws(generator, num_envs) if draws is None
+                               else draws.reset)
+        for t in range(length):
+            if draws is None:
+                noise = None if deterministic else torch.randn(
+                    (num_envs, act), generator=generator, device=generator.device)
+                step_draws = eval_env.step_draws(generator, num_envs)
+            else:
+                noise = None if deterministic else draws.action_noise[t]
+                step_draws = draws.env[t]
             action, _ = policy(state.obs, noise)
-            state = eval_env.step(state, action, eval_env.step_draws(generator, num_envs))
+            state = eval_env.step(state, action, step_draws)
         em = state.info["eval_metrics"]
         out = {
             "eval/episode_reward": em["episode_reward"].mean(),

@@ -54,8 +54,11 @@ def _obs_noise(rng, nu):
 
 
 def _reset_draws_one(env, rng):
+    """The splits of the JAX Joystick.reset (which the standing task
+    inherits; no reference-state init), in order: (draws, the env's
+    `info["rng"]` after them)."""
     nu = env.action_size
-    lo, hi = env._config.reset_joint_scale_range
+    lo, hi = env._config.get("reset_joint_scale_range", (0.5, 1.5))
     rng, k = jax.random.split(rng)
     dxy = jax.random.uniform(k, (2,), jnp.float32, minval=-0.05, maxval=0.05)
     rng, k = jax.random.split(rng)
@@ -70,11 +73,13 @@ def _reset_draws_one(env, rng):
     pc = env._config.push_config
     push = jax.random.uniform(k, dtype=jnp.float32, minval=pc.interval_range[0],
                               maxval=pc.interval_range[1])
-    _, noise = _obs_noise(rng, nu)
-    return (dxy, yaw, js, bv, cmd, push, *noise)
+    rng, noise = _obs_noise(rng, nu)
+    return (dxy, yaw, js, bv, cmd, push, *noise), rng
 
 
 def _step_draws_one(env, rng):
+    """The splits of the JAX Joystick.step, in order: (draws, the env's
+    `info["rng"]` after the step)."""
     nu = env.action_size
     cfg = env._config
     rng, p1, p2, dk = jax.random.split(rng, 4)
@@ -87,15 +92,14 @@ def _step_draws_one(env, rng):
     rng, noise = _obs_noise(rng, nu)
     rng, k = jax.random.split(rng)
     cmd = env.sample_command(k)
-    return (delay, theta, mag, *noise, cmd)
+    return (delay, theta, mag, *noise, cmd), rng
 
 
 def _t(x, dtype=torch.float32):
     return torch.as_tensor(np.array(x)).to(dtype)
 
 
-def jax_reset_draws(env, keys) -> ResetDraws:
-    d = jax.vmap(lambda k: _reset_draws_one(env, k))(keys)
+def _as_reset_draws(d) -> ResetDraws:
     dxy, yaw, js, bv, cmd, push, gy, ac, gr, jp, jv = d
     return ResetDraws(
         base_dxy=_t(dxy), yaw=_t(yaw), joint_scale=_t(js), base_vel=_t(bv),
@@ -105,8 +109,7 @@ def jax_reset_draws(env, keys) -> ResetDraws:
     )
 
 
-def jax_step_draws(env, rngs) -> StepDraws:
-    d = jax.vmap(lambda k: _step_draws_one(env, k))(rngs)
+def _as_step_draws(d) -> StepDraws:
     delay, theta, mag, gy, ac, gr, jp, jv, cmd = d
     return StepDraws(
         action_delay=_t(delay, torch.int64), push_theta=_t(theta), push_magnitude=_t(mag),
@@ -114,6 +117,38 @@ def jax_step_draws(env, rngs) -> StepDraws:
                      joint_pos=_t(jp), joint_vel=_t(jv)),
         command=_t(cmd),
     )
+
+
+def jax_reset_draws(env, keys) -> ResetDraws:
+    return _as_reset_draws(jax.vmap(lambda k: _reset_draws_one(env, k))(keys)[0])
+
+
+def jax_step_draws(env, rngs) -> StepDraws:
+    return _as_step_draws(jax.vmap(lambda k: _step_draws_one(env, k))(rngs)[0])
+
+
+def reset_draws_fn(env):
+    """For runs of many steps: keys (B, 2) -> (ResetDraws, each env's rng
+    after the reset), jitted."""
+    f = jax.jit(jax.vmap(lambda k: _reset_draws_one(env, k)))
+
+    def draws(keys):
+        d, rng = f(keys)
+        return _as_reset_draws(d), rng
+
+    return draws
+
+
+def step_draws_fn(env):
+    """For runs of many steps: rngs (B, 2) -> (StepDraws, each env's rng
+    after the step), jitted."""
+    f = jax.jit(jax.vmap(lambda k: _step_draws_one(env, k)))
+
+    def draws(rngs):
+        d, rng = f(rngs)
+        return _as_step_draws(d), rng
+
+    return draws
 
 
 def per_env_err(a, b):

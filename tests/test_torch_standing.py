@@ -30,7 +30,6 @@ from open_duck_playground_tpu.envs.standing import Standing as JStanding
 from open_duck_playground_tpu.models import loader as JL
 
 from open_duck_playground_torch.envs import rewards as TRW
-from open_duck_playground_torch.envs.joystick import ObsNoise, ResetDraws
 from open_duck_playground_torch.envs.randomize import DRDraws, domain_randomize
 from open_duck_playground_torch.envs.standing import Standing
 from open_duck_playground_torch.models import loader as TL
@@ -39,7 +38,7 @@ from open_duck_playground_torch.physics import megakernel as MK
 from open_duck_playground_torch.physics.types import Model
 
 from test_torch_envs import (
-    METRIC_REL, OBS_MAX, _obs_noise, _t, assert_obs_close, assert_reward_close,
+    METRIC_REL, OBS_MAX, assert_obs_close, assert_reward_close, jax_reset_draws,
     jax_step_draws, per_env_err,
 )
 from test_torch_physics import _assert_gates, build_host_kernel, host_step
@@ -90,32 +89,6 @@ def test_flat_terrain_kernel_arithmetic_matches_step_reference(models32, tmp_pat
 
 
 # ---------------------------------------------------------- the env
-def _reset_draws_one(env, rng):
-    """The splits of the JAX Joystick.reset the standing task inherits
-    (no reference-state init), in order."""
-    nu = env.action_size
-    lo, hi = env._config.get("reset_joint_scale_range", (0.5, 1.5))
-    out = []
-    for shape, a, b in [((2,), -0.05, 0.05), ((1,), -3.14, 3.14), ((nu,), lo, hi), ((6,), -0.05, 0.05)]:
-        rng, k = jax.random.split(rng)
-        out.append(jax.random.uniform(k, shape, jnp.float32, minval=a, maxval=b))
-    rng, k = jax.random.split(rng)
-    cmd = env.sample_command(k)
-    rng, k = jax.random.split(rng)
-    pc = env._config.push_config
-    push = jax.random.uniform(k, dtype=jnp.float32, minval=pc.interval_range[0], maxval=pc.interval_range[1])
-    _, noise = _obs_noise(rng, nu)
-    return (*out, cmd, push, *noise)
-
-
-def jax_reset_draws(env, keys) -> ResetDraws:
-    dxy, yaw, js, bv, cmd, push, gy, ac, gr, jp, jv = jax.vmap(lambda k: _reset_draws_one(env, k))(keys)
-    return ResetDraws(base_dxy=_t(dxy), yaw=_t(yaw)[:, 0], joint_scale=_t(js), base_vel=_t(bv),
-                      command=_t(cmd), push_interval=_t(push),
-                      obs=ObsNoise(gyro=_t(gy), accelerometer=_t(ac), gravity=_t(gr),
-                                   joint_pos=_t(jp), joint_vel=_t(jv)))
-
-
 @pytest.fixture(scope="module")
 def envs():
     jenv = JStanding(task="flat_terrain", dtype=jnp.float32)
