@@ -102,7 +102,8 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      set at 70% of the lower of three seeds' readings at that point
      (PERF.md, "Training outcome on the card"); the line prints both
      readings and the bar. A trainer that runs but no longer learns (a
-     broken optimizer, reward or normalizer) fails here.
+     broken optimizer, reward or normalizer) fails here. The run's own
+     `metrics.jsonl` must log the kernel launches counted here.
 Then the kernel table, the nvidia-smi line, and `{"ok": true, ...}` last.
 Exits non-zero, printing no result, without a CUDA card or when a phase
 fails. Needs no network; the kernel builds count against the run.
@@ -1481,6 +1482,8 @@ def learn_phase(P, smi, spec) -> int:
         seconds = time.perf_counter() - t0
         launches, kernel_launches = P.MK.launches, P.MK.kernel(spec).launches
         launches_hfield = P.MK.launches_hfield
+        logged = [json.loads(line)["kernel_launches"]
+                  for line in (pathlib.Path(tmp) / "run" / "metrics.jsonl").read_text().splitlines()]
     eval_steps = cfg.episode_length // cfg.action_repeat
     training_steps = LEARN_STEPS // cfg.steps_per_training_step
     want_launches = (2 * eval_steps + training_steps * cfg.k_unrolls * cfg.unroll_length) * cfg.action_repeat
@@ -1492,12 +1495,16 @@ def learn_phase(P, smi, spec) -> int:
         failures.append(f"eval reward {rewards[0]} -> {rewards[1]}: want x{LEARN_GAIN} and >= {LEARN_BAR}")
     if launches != want_launches or kernel_launches != launches or launches_hfield != 0:
         failures.append(f"{launches} launches ({kernel_launches} of the {CLI_TASK} build), want {want_launches}")
+    want_logged = [eval_steps * cfg.action_repeat, launches]
+    if logged != want_logged:
+        failures.append(f"metrics.jsonl logs {logged} kernel launches, want {want_logged}")
     emit({"phase": "learn", "task": CLI_TASK, "seed": 0, "envs": cfg.num_envs, "env_steps": LEARN_STEPS,
           "training_steps": training_steps, "eval_reward": rewards,
           "eval_reward_std": [m["eval/episode_reward_std"] for m in eval_metrics],
           "gain": rewards[1] / rewards[0] if len(rewards) == 2 else None, "gain_min": LEARN_GAIN,
           "bar": LEARN_BAR, "seconds": seconds, "seconds_per_eval": evals,
-          "kernel_launches": launches, "expected_launches": want_launches, "ok": not failures, "card": smi})
+          "kernel_launches": launches, "expected_launches": want_launches, "logged_launches": logged,
+          "ok": not failures, "card": smi})
     if failures:
         raise SystemExit(f"learn failed: {failures}")
     return launches

@@ -4,8 +4,10 @@ Counterpart of `open_duck_playground_tpu/cli/runner.py`: the same flags,
 choices and defaults, and the same side effects (TensorBoard scalars when
 `tensorboardX` is installed, a full checkpoint and an ONNX export per eval).
 It also appends every progress call's metrics to `<output_dir>/metrics.jsonl`,
-one JSON object per line with `env_steps` and `wall_s` (seconds since the
-Runner was built), so that a machine without `tensorboardX` keeps them too.
+one JSON object per line with `env_steps`, `wall_s` (seconds since the
+Runner was built) and `kernel_launches` (the physics megakernel's launches in
+this process so far, 0 on the CPU), so that a machine without `tensorboardX`
+keeps them too.
 
     python -m open_duck_playground_torch.cli.runner \\
         --env joystick --task flat_terrain_backlash --num_timesteps 300000000
@@ -37,6 +39,7 @@ import torch
 from open_duck_playground_torch.envs.randomize import domain_randomize
 from open_duck_playground_torch.export import onnx_export
 from open_duck_playground_torch.parallel import mesh as M
+from open_duck_playground_torch.physics import megakernel as MK
 from open_duck_playground_torch.train import checkpoint as CKPT
 from open_duck_playground_torch.train import ppo
 from open_duck_playground_torch.train.config import PPOConfig
@@ -147,7 +150,7 @@ class Runner:
             for k, v in metrics.items():
                 self.writer.add_scalar(k, float(v), num_steps)
         rec = {"env_steps": int(num_steps), "wall_s": time.time() - self.t0,
-               **{k: float(v) for k, v in metrics.items()}}
+               "kernel_launches": MK.launches, **{k: float(v) for k, v in metrics.items()}}
         with open(self.metrics_log, "a") as f:
             f.write(json.dumps(rec) + "\n")
         if "eval/episode_reward" in metrics:

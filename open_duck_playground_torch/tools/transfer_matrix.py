@@ -9,6 +9,10 @@ does not translate; head dims settle). C-MuJoCo runs on the host's CPU:
 
     python -m open_duck_playground_torch.tools.transfer_matrix -o runs/x.onnx \\
         [--model_path .../scene_flat_terrain_backlash.xml] [--json_out f.json]
+
+Without `--model_path` the scene is the one the policy's action count names:
+`scene_flat_terrain_no_head.xml` for the robot without its head (10
+actuators), else `scene_flat_terrain_backlash.xml`, the root tool's default.
 """
 
 from __future__ import annotations
@@ -62,6 +66,22 @@ def _passes(stats: dict, crit) -> bool:
     return err is not None and max(err) < thr
 
 
+NO_HEAD_ACTUATORS = 10
+
+
+def default_model_path(onnx_path) -> str:
+    """The scene of the policy's robot, read from its action count."""
+    import numpy as np
+
+    from open_duck_playground_torch.export.onnx_runtime import OnnxPolicy
+
+    policy = OnnxPolicy(onnx_path)
+    width = policy.graph["initializers"]["obs_mean"].shape[-1]
+    actions = policy.infer(np.zeros(width, np.float32)).shape[-1]
+    scene = "scene_flat_terrain_no_head.xml" if actions == NO_HEAD_ACTUATORS else "scene_flat_terrain_backlash.xml"
+    return str(duck_base.XML_DIR / scene)
+
+
 def run_matrix(onnx_path, model_path, seconds=10.0, standing=False, head_direct=False):
     """One dict per row of the battery: its name, whether it passes, and
     the runner's summary (without the observations)."""
@@ -80,7 +100,9 @@ def run_matrix(onnx_path, model_path, seconds=10.0, standing=False, head_direct=
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-o", "--onnx_model_path", required=True)
-    ap.add_argument("--model_path", default=str(duck_base.XML_DIR / "scene_flat_terrain_backlash.xml"))
+    ap.add_argument("--model_path", default=None,
+                    help="scene XML (default: the no-head scene for a 10-actuator policy, else the "
+                    "backlash scene)")
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--json_out", default=None)
     ap.add_argument("--standing", action="store_true",
@@ -89,7 +111,8 @@ def main(argv=None):
                     help="mirror the env's head_direct_targets training flag")
     args = ap.parse_args(argv)
 
-    results = run_matrix(args.onnx_model_path, args.model_path, args.seconds,
+    model_path = args.model_path or default_model_path(args.onnx_model_path)
+    results = run_matrix(args.onnx_model_path, model_path, args.seconds,
                          standing=args.standing, head_direct=args.head_direct_targets)
     for r in results:
         print(json.dumps(r))

@@ -157,8 +157,9 @@ def test_main_writes_a_checkpoint_and_onnx_per_eval_and_resumes(tmp_path, capsys
     first, last = CKPT.restore(resumed[0]), CKPT.restore(resumed[-1])
     assert last["env_steps"] == 64 and all(float(s["step"]) == 4 for s in last["opt_state"]["state"].values())
     assert torch.equal(first["generator"], raw["generator"])  # the restored generator went on
-    logged = [json.loads(line)["env_steps"] for line in (tmp_path / "resumed" / "metrics.jsonl").open()]
-    assert logged == [32, 64]  # one JSON line per eval, the CLI's own log
+    logged = [json.loads(line) for line in (tmp_path / "resumed" / "metrics.jsonl").open()]
+    assert [r["env_steps"] for r in logged] == [32, 64]  # one JSON line per eval, the CLI's own log
+    assert [r["kernel_launches"] for r in logged] == [0, 0]  # the plain physics on the CPU
 
 
 def test_main_trains_randomized_and_evaluates_nominal(tmp_path, monkeypatch):

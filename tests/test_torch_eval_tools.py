@@ -13,10 +13,13 @@
   x scene; a policy trained one step by the port's CLI on the CPU exported,
   validated and run closed loop.
 - `RefMotionViewer.run_headless` against JAX's frames, `plot_obs` under
-  Agg, and `tools.transfer_matrix.run_matrix` against the root tool.
+  Agg, and `tools.transfer_matrix.run_matrix` against the root tool, on the
+  backlash scene and on the no-head scene with a 10-actuator policy (whose
+  scene the port's tool picks when `--model_path` is not given).
 """
 
 import importlib.util
+import json
 import pathlib
 import pickle
 
@@ -285,4 +288,26 @@ def test_transfer_matrix_matches_the_root_tool(policies, tmp_path, capsys):
     out = tmp_path / "matrix.json"
     rows = TTM.main(["-o", policies[(101, 14)], "--seconds", "0.2", "--json_out", str(out)])
     assert len(rows) == len(TTM.ROWS) and out.stat().st_size > 0
+    assert f"TRANSFER: {sum(r['ok'] for r in rows)}/6 rows pass" in capsys.readouterr().out
+
+
+def test_transfer_matrix_runs_on_the_no_head_scene(policies, tmp_path, capsys):
+    """A 10-actuator policy on `scene_flat_terrain_no_head.xml`: the port's
+    battery equals the root tool's row for row (the head-command row too,
+    whose head dims are observations on this robot), and without
+    `--model_path` the port's tool picks the no-head scene from the
+    policy's action count."""
+    spec = importlib.util.spec_from_file_location("root_transfer_matrix", ROOT / "tools" / "transfer_matrix.py")
+    root = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root)
+    onnx, xml = policies[(77, 10)], str(TD.XML_DIR / "scene_flat_terrain_no_head.xml")
+    assert TTM.default_model_path(onnx) == xml
+    assert TTM.default_model_path(policies[(101, 14)]).endswith("scene_flat_terrain_backlash.xml")
+    got = TTM.run_matrix(onnx, xml, seconds=0.3)
+    assert got == root.run_matrix(onnx, xml, seconds=0.3)
+    assert [r["row"] for r in got] == [name for name, _, _ in TTM.ROWS]
+    assert all(np.isfinite(r["mean_height"]) and 0.1 < r["mean_height"] < 0.25 for r in got)
+    out = tmp_path / "matrix.json"
+    rows = TTM.main(["-o", onnx, "--seconds", "0.3", "--json_out", str(out)])
+    assert rows == got and json.loads(out.read_text()) == got
     assert f"TRANSFER: {sum(r['ok'] for r in rows)}/6 rows pass" in capsys.readouterr().out
