@@ -87,7 +87,8 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      training env step, gait oracle, each traced), `tools.profile_train_step`
      at the full config (its eval cut to 128 envs x 200 steps; one control
      step and one SGD step traced: launches, host syncs, idle share, top
-     kernels, by layer), every `tools.profile_epoch` variant (the ones that
+     kernels, by layer; each trace must hold a device event for every
+     launch, `benchutil.coverage`), every `tools.profile_epoch` variant (the ones that
      compute the production epoch, the CUDA-graph ones included, within a
      relative 1e-5 of its parameters), `tools.profile_shuffle` (every
      permuting strategy equals the production minibatches bit for bit), and
@@ -1407,6 +1408,10 @@ def profile_phase(P, smi, specs, rows) -> int:
             empty = [name for name, sec in sections.items() if not sec["kernel_launches"] > 0]
             if empty:
                 failures.append(f"{label}/{key}: the profiler saw no kernel in {empty}")
+            whole = t["trace"]["whole"]
+            if whole["untraced_launches"]:
+                failures.append(f"{label}/{key}: the trace lost the device events of {whole['untraced_launches']} "
+                                f"of {whole['launch_calls']} launches")
 
     pieces = ("physics", "env_step", "training_env_step")
     r, got = call("profile_step", P.profile_step, ["--task", CLI_TASK, "--envs", "4096", "--steps",

@@ -78,15 +78,53 @@ def no_marks(name: str):
     return contextlib.nullcontext()
 
 
-def _profiled(fn, dev: torch.device, mark):
+# The host calls that put work on the card: each has one device event of
+# the same correlation id when the trace is whole.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaMemsetAsync", "cudaMemcpyAsync")
+# The profiler keeps a device event only if its start, mapped from the
+# card's clock onto the host's, lies inside the profiling window; that
+# mapping can be off by milliseconds. It can also lose the device event of
+# the first launch in its window. Either drops kernels of a traced call
+# (tools/profile_window.py). So the window opens with idle host time and a
+# lead-in launch of its own, and closes with idle host time.
+TRACE_MARGIN_S = 0.1
+LEAD_IN = "odp_lead_in"
+
+
+def _profiled(fn, dev: torch.device, mark, margin: float = TRACE_MARGIN_S, lead_in: bool = True):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
+        if lead_in:
+            with record_function(LEAD_IN):
+                torch.ones(1, device=dev)
+                torch.cuda.synchronize(dev)
         with record_function(SECTION + "whole"):
             fn(mark)
             torch.cuda.synchronize(dev)
+        time.sleep(margin)
     return prof.events()
+
+
+def coverage(events, span=None) -> dict:
+    """How whole a trace is: its host calls that put work on the card
+    (`LAUNCH_CALLS`; with `span`, a (start, end) on the host's clock in us,
+    only those made inside it), those of them with no device event of their
+    correlation id (`untraced_launches`), and the least time from such a
+    call to the start of its device event, in us on the host's clock
+    (`least_launch_to_start_us`; work cannot start before its launch, so a
+    negative value is the error of the profiler's clock mapping)."""
+    calls = {e.id: e.time_range.start for e in events
+             if e.device_type == torch.autograd.DeviceType.CPU and e.name in LAUNCH_CALLS
+             and (span is None or span[0] <= e.time_range.start <= span[1])}
+    starts = {e.id: e.time_range.start for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.id in calls}
+    gaps = [starts[i] - calls[i] for i in starts]
+    return {"launch_calls": len(calls), "untraced_launches": len(calls) - len(starts),
+            "least_launch_to_start_us": min(gaps) if gaps else None}
 
 
 def _union_us(intervals) -> float:
@@ -128,7 +166,8 @@ def device_trace(fn, dev: torch.device, top: int = 10, named: Sequence[str] = ()
     may nest; each counts what its host code launched). For each substring
     in `named`, the whole run also reports the launches and device ms of
     the kernels whose names hold it. `whole["placed_by_launch"]` is the
-    share of device events matched to their launching host call. Raises if
+    share of device events matched to their launching host call, and
+    `whole` also holds the whole run's `coverage`. Raises if
     the profiler saw no kernel: CUPTI gave no device events, and no share
     can be read. None on the CPU: there is no device to trace."""
     if dev.type != "cuda":
@@ -169,6 +208,7 @@ def device_trace(fn, dev: torch.device, top: int = 10, named: Sequence[str] = ()
         if key == "whole":
             out["whole"] = _section_stats(ranges["whole"], device, launched_at, top)
             out["whole"]["placed_by_launch"] = sum(e.id in launches for e in device) / len(device)
+            out["whole"].update(coverage(events, ranges["whole"][0]))
             out["named"] = {}
             for part in named:
                 hits = [e.time_range.end - e.time_range.start for e in device if part in e.name]

@@ -13,6 +13,12 @@ an `EVAL` line per evaluation. The CLI run itself logs every eval in
 `RUN/metrics.jsonl`. `--env`, `--task` and `--config_override` are the
 CLI's own, as the run was given them (`bf16_matmuls=True` evaluates with
 bf16 products, as the run trained).
+
+Beside the evaluator's metrics each evaluation reports where the task's
+clip of the step reward at 0 bites: `eval/clip_share`, the share of the
+episodes' steps whose reward before the clip is negative, and
+`eval/episode_clip_fill`, the mean points per episode the clip adds (the
+episode reward less the sum of its scaled terms).
 """
 
 from __future__ import annotations
@@ -25,8 +31,37 @@ from pathlib import Path
 
 import torch
 
+from open_duck_playground_torch.envs.wrappers import EvalEnv
+
 EVAL_VARIANTS = (("stochastic", {}, False), ("deterministic", {}, True),
                  ("no_push", {"push_config.enable": False}, False))
+
+
+class ClipCountingEvalEnv(EvalEnv):
+    """An `EvalEnv` that also sums, over the steps its episode sums take
+    in, the steps whose reward before the clip at 0 is negative and the
+    points the clip adds; `clip_metrics` reads them per episode."""
+
+    def reset(self, draws):
+        self.steps = self.clipped = self.fill = 0.0
+        return super().reset(draws)
+
+    def step(self, state, action, draws):
+        alive = 1.0 - state.info["eval_metrics"]["episode_done"]
+        nstate = super().step(state, action, draws)
+        total = 0.0
+        for k, scale in self.env.config.reward_config.scales.items():
+            if scale != 0:
+                m = nstate.metrics[("reward/" if scale > 0 else "cost/") + k]
+                total = total + scale * (m if scale > 0 else -m) * self.env.dt
+        self.steps = self.steps + alive.sum()
+        self.clipped = self.clipped + (alive * (total < 0)).sum()
+        self.fill = self.fill + (alive * (nstate.reward - total)).sum()
+        return nstate
+
+    def clip_metrics(self, num_envs: int) -> dict:
+        return {"eval/clip_share": float(self.clipped / self.steps),
+                "eval/episode_clip_fill": float(self.fill / num_envs)}
 
 
 def last_checkpoint(run: Path) -> Path:
@@ -47,9 +82,8 @@ def eval_variants(ckpt, env_name: str, task: str, overrides, num_envs: int, leng
     """The checkpoint's policy (the networks of the CLI's PPO config with
     `ppo_overrides`, `bf16_matmuls` included) in `EVAL_VARIANTS`, each with
     a generator seeded `seed + 1000`: per variant the eval/* metrics, the
-    reward's standard error and the seconds."""
+    reward's standard error, the clip's share and fill, and the seconds."""
     from open_duck_playground_torch.cli import runner
-    from open_duck_playground_torch.envs.wrappers import EvalEnv
     from open_duck_playground_torch.train import checkpoint as CKPT, ppo
 
     cfg = runner.ppo_config(**(ppo_overrides or {}))
@@ -61,9 +95,11 @@ def eval_variants(ckpt, env_name: str, task: str, overrides, num_envs: int, leng
     out = {}
     for name, extra, deterministic in EVAL_VARIANTS:
         ev_env = runner.build_env(env_name, task, {**(overrides or {}), **extra} or None, device)
+        eval_env = ClipCountingEvalEnv(ev_env, cfg.episode_length)
         t0 = time.time()
-        m = ppo.run_eval(EvalEnv(ev_env, cfg.episode_length), (ts.normalizer, ts.net), num_envs, length,
+        m = ppo.run_eval(eval_env, (ts.normalizer, ts.net), num_envs, length,
                          deterministic, torch.Generator(device=device).manual_seed(seed + 1000))
+        m.update(eval_env.clip_metrics(num_envs))
         m["eval/episode_reward_stderr"] = m["eval/episode_reward_std"] / math.sqrt(num_envs)
         m["seconds"] = time.time() - t0
         out[name] = m

@@ -506,5 +506,6 @@ def test_device_trace_sees_kernels_in_each_section(cuda):
     fn(benchutil.no_marks)
     t = benchutil.device_trace(fn, cuda)
     assert t["whole"]["kernel_launches"] >= 4 and 0 <= t["whole"]["idle_share"] < 1
+    assert t["whole"]["launch_calls"] >= 4 and t["whole"]["untraced_launches"] == 0
     assert t["sections"]["add"]["kernel_launches"] == 1 and t["sections"]["mul"]["kernel_launches"] >= 2
     assert benchutil.host_syncs(fn, cuda) == {"whole": 1, "sections": {"add": 0, "mul": 0, "item": 1}}

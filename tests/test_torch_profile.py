@@ -23,12 +23,16 @@ own functions:
 - `megakernel_work`, moved from chip_smoke.py, gives the tuples it gave
   there (exact: the same float arithmetic);
 - `gen_no_head_xml` writes the bytes of the JAX tool and of the committed
-  XML.
+  XML;
+- `benchutil.coverage` on a hand-made trace counts the launches whose
+  device event is missing and the least launch-to-start time, exactly;
+  `profile_window` builds and runs its control step (nothing traced).
 """
 
 import importlib.util
 import pathlib
 import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,8 +44,8 @@ from open_duck_playground_torch.envs.randomize import DRDraws, domain_randomize
 from open_duck_playground_torch.envs.wrappers import TrainingEnv
 from open_duck_playground_torch.models import loader
 from open_duck_playground_torch.physics import forward as F
-from open_duck_playground_torch.tools import (count_kernel_ops as CK, gen_no_head_xml, profile_epoch,
-                                              profile_shuffle, profile_step, profile_train_step)
+from open_duck_playground_torch.tools import (benchutil, count_kernel_ops as CK, gen_no_head_xml, profile_epoch,
+                                              profile_shuffle, profile_step, profile_train_step, profile_window)
 from open_duck_playground_torch.train import ppo
 from open_duck_playground_torch.train import running_stats as RS
 from open_duck_playground_torch.train.config import PPOConfig
@@ -334,6 +338,25 @@ def test_gen_no_head_xml_writes_the_jax_tools_bytes(tmp_path):
 
 def test_measuring_tools_refuse_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for tool in (profile_step, profile_train_step, profile_epoch, profile_shuffle, CK):
+    for tool in (profile_step, profile_train_step, profile_epoch, profile_shuffle, profile_window, CK):
         with pytest.raises(SystemExit, match="no CUDA device"):
             tool.main([])
+
+
+def test_coverage_counts_the_launches_whose_device_event_is_lost():
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ev = lambda name, dev, i, start: types.SimpleNamespace(name=name, device_type=dev, id=i,
+                                                           time_range=types.SimpleNamespace(start=start, end=start + 1))
+    events = [ev("aten::add", cpu, 1, 0.0), ev("cudaLaunchKernel", cpu, 2, 10.0), ev("add_kernel", cuda, 2, 15.0),
+              ev("cuLaunchKernel", cpu, 3, 20.0), ev("mk_kernel", cuda, 3, 18.5),
+              ev("cudaMemsetAsync", cpu, 4, 30.0), ev("cudaLaunchKernel", cpu, 5, 40.0),
+              ev("cudaStreamSynchronize", cpu, 6, 50.0)]
+    assert benchutil.coverage(events) == {"launch_calls": 4, "untraced_launches": 2, "least_launch_to_start_us": -1.5}
+    assert benchutil.coverage(events[:1]) == {"launch_calls": 0, "untraced_launches": 0,
+                                              "least_launch_to_start_us": None}
+
+
+def test_profile_window_runs_its_control_step_on_the_cpu():
+    record = profile_window.main(["--envs", "8", "--traces", "1"], device="cpu")
+    assert record["tool"] == "profile_window" and record["envs"] == 8 and record["settings"] is None
+    assert record["device"] == "cpu" and record["card"] == "cpu"

@@ -36,12 +36,22 @@ action is zero. The test asserts that the run holds a push, a fall, a command
 resample and an autoreset (by a fall and by truncation at 300 steps).
 
 `cross_eval` scores a checkpoint of the port in JAX's `EvalEnv(Standing)`
-and in the port's; run as a script it prints both at full eval length:
+and in the port's: the episode reward, the episode length and each reward
+term's episode sum (`episode_reward/alive`, `episode_cost/torques`, ...,
+as `ppo.run_eval` names them). Run as a script it prints both at full eval
+length, each side with its own random numbers:
 
     JAX_PLATFORMS=cpu python tests/test_torch_standing_long.py CKPT_DIR --envs 1024
 
+Its test gives the port JAX's own draws instead (reset and step draws
+replayed from JAX's keys, the policy noise of JAX's sampler), so the two
+evaluators must agree: the episode length exactly, the episode reward at
+test_torch_envs.py's reward tolerance and each term's episode sum at its
+metrics tolerance (relative 2.2e-4 and 1e-3, as |port - JAX| / (1 + |JAX|)).
+
 Measured on one CPU thread: ~110 s for the run, most of it the port's plain
-physics (0.2 s per control step).
+physics (0.2 s per control step); ~35 s for the cross eval's test, most of
+it JAX compiling its evaluator.
 """
 
 if __name__ == "__main__":  # run as a script: the repo on the path, the tests' JAX settings
@@ -298,12 +308,14 @@ def test_standing_held_against_jax_through_pushes_falls_resample_and_autoresets(
 
 
 # ------------------------------------------- the evaluation on both sides
-def cross_eval(ckpt, num_envs: int, length: int, seed: int = 0):
+def cross_eval(ckpt, num_envs: int, length: int, seed: int = 0, shared_draws: bool = False):
     """A port checkpoint's policy (stochastic) in JAX's EvalEnv(Standing)
-    and in the port's, each with its own random numbers, on this host's
-    CPU. Returns {"jax": metrics, "port": metrics}, each with the mean
-    episode reward, its standard error, the mean episode length and the
-    share of episodes that ended in a fall."""
+    and in the port's on this host's CPU, each with its own random numbers,
+    or with `shared_draws` the port with JAX's. Returns {"jax": metrics,
+    "port": metrics}, each with the mean episode reward, its standard
+    error, the mean episode length, the share of episodes that ended in a
+    fall, and each metric's episode mean as `ppo.run_eval` reads it (a
+    term's episode sum; a tracking error's per-step mean)."""
     from open_duck_playground_tpu.train import networks as JN, running_stats as JRS
     from open_duck_playground_torch.train import checkpoint as CKPT, ppo
     from open_duck_playground_torch.train.config import PPOConfig
@@ -316,24 +328,16 @@ def cross_eval(ckpt, num_envs: int, length: int, seed: int = 0):
     ts, _ = CKPT.restore_training_state(ckpt, ts)
 
     def summary(em):
-        r = np.asarray(em["episode_reward"], np.float64)
-        n = np.asarray(em["episode_length"], np.float64)
-        return {"episode_reward": float(r.mean()), "stderr": float(r.std() / math.sqrt(r.size)),
-                "avg_episode_length": float(n.mean()), "fell": float((n < length).mean()),
-                "envs": int(r.size)}
+        em = jax.tree.map(lambda v: np.asarray(v, np.float64), em)
+        r, n = em["episode_reward"], em["episode_length"]
+        out = {"episode_reward": float(r.mean()), "stderr": float(r.std() / math.sqrt(r.size)),
+               "avg_episode_length": float(n.mean()), "fell": float((n < length).mean()),
+               "envs": int(r.size)}
+        for k, v in em["episode_metrics"].items():
+            out["episode_" + k] = float((v / np.maximum(n, 1) if k.startswith("tracking_err/") else v).mean())
+        return out
 
-    t0 = time.time()
-    ev = EvalEnv(tenv, cfg.episode_length)
-    state = ev.reset(tenv.reset_draws(gen, num_envs))
-    policy = ppo.make_policy((ts.normalizer, ts.net))
-    with torch.no_grad():
-        for _ in range(length):
-            action, _ = policy(state.obs, torch.randn((num_envs, tenv.action_size), generator=gen))
-            state = ev.step(state, action, ev.step_draws(gen, num_envs))
-    port = summary({k: v.numpy() for k, v in state.info["eval_metrics"].items() if k != "episode_metrics"})
-    port["seconds"] = time.time() - t0
-
-    # the same weights in the JAX network, the JAX evaluator's loop
+    # the port's weights in the JAX network, the JAX evaluator's loop
     jenv = JStanding(task="flat_terrain", dtype=jnp.float32)
     sd = ts.net.state_dict()
 
@@ -356,29 +360,56 @@ def cross_eval(ckpt, num_envs: int, length: int, seed: int = 0):
 
     @jax.jit
     def run_jax(key):
+        """The eval's episode sums; with `shared_draws` also the reset keys
+        and, per step, each env's rng before the step and the policy noise."""
         key, rkey = jax.random.split(key)
-        s = jev.reset(jax.random.split(rkey, num_envs))
+        keys = jax.random.split(rkey, num_envs)
+        s = jev.reset(keys)
 
         def step(carry, _):
             s, k = carry
             k, ak = jax.random.split(k)
             logits = net.policy_logits(params, JRS.normalize(norm, s.obs))
-            return (jev.step(s, JN.postprocess(JN.sample_raw(ak, logits))), k), None
+            raw = JN.sample_raw(ak, logits)
+            loc = JN.dist_params(logits)[0]  # sample_raw's draw, again
+            rec = (s.info["rng"], jax.random.normal(ak, loc.shape, loc.dtype)) if shared_draws else None
+            return (jev.step(s, JN.postprocess(raw)), k), rec
 
-        (s, _), _ = jax.lax.scan(step, (s, key), None, length=length)
-        return s.info["eval_metrics"]
+        (s, _), rec = jax.lax.scan(step, (s, key), None, length=length)
+        return s.info["eval_metrics"], keys, rec
 
     t0 = time.time()
-    em = run_jax(jax.random.PRNGKey(seed + 1000))
-    jres = summary({k: np.asarray(v) for k, v in em.items() if k != "episode_metrics"})
+    em, keys, rec = run_jax(jax.random.PRNGKey(seed + 1000))
+    jres = summary({k: v for k, v in em.items() if k != "episode_done"})
     jres["seconds"] = time.time() - t0
+
+    t0 = time.time()
+    ev = EvalEnv(tenv, cfg.episode_length)
+    if shared_draws:
+        step_draws = step_draws_fn(jenv)
+        state = ev.reset(reset_draws_fn(jenv)(keys)[0])
+    else:
+        state = ev.reset(tenv.reset_draws(gen, num_envs))
+    policy = ppo.make_policy((ts.normalizer, ts.net))
+    with torch.no_grad():
+        for t in range(length):
+            if shared_draws:
+                noise, draws = torch.tensor(np.asarray(rec[1][t], np.float32)), step_draws(rec[0][t])[0]
+            else:
+                noise = torch.randn((num_envs, tenv.action_size), generator=gen)
+                draws = ev.step_draws(gen, num_envs)
+            action, _ = policy(state.obs, noise)
+            state = ev.step(state, action, draws)
+    port = summary({k: v for k, v in state.info["eval_metrics"].items() if k != "episode_done"})
+    port["seconds"] = time.time() - t0
     return {"jax": jres, "port": port}
 
 
 def test_cross_eval_scores_one_policy_on_both_sides(tmp_path):
-    """`cross_eval` at a toy size: a fresh checkpoint (random weights) in
-    both evaluators; both run every env to the end or to a fall, with
-    finite rewards of the same sign."""
+    """`cross_eval` at a toy size with the port given JAX's draws: a fresh
+    checkpoint (random weights) in both evaluators; the episode length,
+    the episode reward and every term's episode sum agree (the module
+    docstring's tolerances)."""
     from open_duck_playground_torch.train import checkpoint as CKPT, ppo
     from open_duck_playground_torch.train.config import PPOConfig
 
@@ -387,11 +418,17 @@ def test_cross_eval_scores_one_policy_on_both_sides(tmp_path):
     probe = tenv.reset(tenv.reset_draws(gen, 2))
     ts = ppo.init_training_state(probe.obs, tenv.action_size, PPOConfig(), gen, device="cpu")
     CKPT.save_training_state(tmp_path / "ck", ts, gen.get_state())
-    out = cross_eval(tmp_path / "ck", num_envs=4, length=6)
-    for side in ("jax", "port"):
-        r = out[side]
+    out = cross_eval(tmp_path / "ck", num_envs=4, length=6, shared_draws=True)
+    jres, port = out["jax"], out["port"]
+    assert set(jres) == set(port), out
+    terms = [k for k in jres if k.startswith(("episode_reward/", "episode_cost/"))]
+    assert {"episode_reward/alive", "episode_cost/torques", "episode_cost/action_rate"} <= set(terms), terms
+    for r in (jres, port):
         assert r["envs"] == 4 and np.isfinite(r["episode_reward"]) and r["episode_reward"] > 0, out
         assert 1 <= r["avg_episode_length"] <= 6, out
+    assert port["avg_episode_length"] == jres["avg_episode_length"], out
+    for k, rel in [("episode_reward", REWARD_REL)] + [(k, METRIC_REL) for k in terms]:
+        assert abs(port[k] - jres[k]) / (1 + abs(jres[k])) < rel, (k, port[k], jres[k])
 
 
 if __name__ == "__main__":

@@ -508,5 +508,11 @@ def test_recipe_outcome_trains_through_the_cli_and_evaluates(tmp_path):
     evals = recipe_outcome.main([str(run), *env, "--eval_envs", "3", "--eval_length", "4"], device="cpu")
     assert set(evals) == {"stochastic", "deterministic", "no_push"}
     assert json.loads((run / "evals.json").read_text()) == evals
+    scales = Standing.default_config().reward_config.scales
     for m in evals.values():
         assert m["eval/avg_episode_length"] == 4 and np.isfinite(m["eval/episode_reward_stderr"])
+        # the clip's reading: the episode reward is its scaled terms plus the clip's fill
+        terms = sum(sc * 0.02 * (m["eval/episode_reward/" + k] if sc > 0 else -m["eval/episode_cost/" + k])
+                    for k, sc in scales.items() if sc)
+        assert abs(m["eval/episode_reward"] - terms - m["eval/episode_clip_fill"]) < 1e-5
+        assert 0 <= m["eval/clip_share"] <= 1 and m["eval/episode_clip_fill"] > -1e-5
