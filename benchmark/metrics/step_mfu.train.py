@@ -1,0 +1,13 @@
+"""The whole training step's share of the card's f32 peak, in %: the
+operations `_step_work.train_step_ops` counts over the untraced step's
+seconds times 67 TFLOP/s."""
+
+from benchmark.metrics import _peaks, _step_work
+
+
+def read(obs):
+    wall = obs["timed"].get("step_s")
+    if not wall:
+        return None
+    ops = _step_work.train_step_ops(obs["model"], obs["work_shape"], obs["active"])
+    return 100.0 * ops / (wall * _peaks.F32_FLOPS)
