@@ -84,7 +84,8 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      and update seconds are printed;
  13. profile: the profiling tools through their own `main(argv)`:
      `tools.profile_step` (4096 envs x 50 steps: physics, env step,
-     training env step, gait oracle, each traced), `tools.profile_train_step`
+     run_eval's control step, gait oracle, each traced; 95% of the control
+     step's launches inside the program's spans), `tools.profile_train_step`
      at the full config (its eval cut to 128 envs x 200 steps; one control
      step and one SGD step traced: launches, host syncs, idle share, top
      kernels, by layer; each trace must hold a device event for every
@@ -1413,7 +1414,7 @@ def profile_phase(P, smi, specs, rows) -> int:
                 failures.append(f"{label}/{key}: the trace lost the device events of {whole['untraced_launches']} "
                                 f"of {whole['launch_calls']} launches")
 
-    pieces = ("physics", "env_step", "training_env_step")
+    pieces = ("physics", "env_step", "eval_step")
     r, got = call("profile_step", P.profile_step, ["--task", CLI_TASK, "--envs", "4096", "--steps",
                                                    str(PROFILE_STEPS), "--reps", str(PROFILE_STEP_REPS)])
     # timed runs of each piece, and one step in each of the three traced runs
@@ -1423,6 +1424,9 @@ def profile_phase(P, smi, specs, rows) -> int:
     if [r[k]["megakernel_launches_per_step"] for k in (*pieces, "gait_oracle")] != [1, 1, 1, 0]:
         failures.append(f"profile_step: launches per step {[r[k]['megakernel_launches_per_step'] for k in pieces]}")
     traced_ok("profile_step", {k: r[k] for k in pieces})
+    in_spans = r["eval_step"]["trace"]["spans"]["launches_in_spans"]
+    if not in_spans >= 0.95:
+        failures.append(f"profile_step: {in_spans} of the control step's launches inside the program's spans")
 
     cfg = P.cfg.PPOConfig()
     r, got = call("profile_train_step", P.profile_train_step,

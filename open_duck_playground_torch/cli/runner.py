@@ -5,9 +5,11 @@ choices and defaults, and the same side effects (TensorBoard scalars when
 `tensorboardX` is installed, a full checkpoint and an ONNX export per eval).
 It also appends every progress call's metrics to `<output_dir>/metrics.jsonl`,
 one JSON object per line with `env_steps`, `wall_s` (seconds since the
-Runner was built) and `kernel_launches` (the physics megakernel's launches in
-this process so far, 0 on the CPU), so that a machine without `tensorboardX`
-keeps them too.
+Runner was built), `kernel_launches` (the physics megakernel's launches in
+this process so far, 0 on the CPU) and `host_s` (the host self seconds of
+each span of `utils/tracing.py` that closed since the previous line: the
+period's training steps, `sgd.*` for the SGD steps, then its eval), so that
+a machine without `tensorboardX` keeps them too.
 
     python -m open_duck_playground_torch.cli.runner \\
         --env joystick --task flat_terrain_backlash --num_timesteps 300000000
@@ -43,6 +45,7 @@ from open_duck_playground_torch.physics import megakernel as MK
 from open_duck_playground_torch.train import checkpoint as CKPT
 from open_duck_playground_torch.train import ppo
 from open_duck_playground_torch.train.config import PPOConfig
+from open_duck_playground_torch.utils import tracing
 
 ENVS = ("joystick", "standing")
 TASKS = ("flat_terrain", "rough_terrain", "flat_terrain_backlash", "rough_terrain_backlash",
@@ -113,6 +116,7 @@ class Runner:
         self.output_dir = Path.cwd() / Path(args.output_dir)
         self.metrics_log = self.output_dir / "metrics.jsonl"
         self.t0 = time.time()
+        self.spans = tracing.snapshot()
         self.writer = None
         if self.writes:
             self.output_dir.mkdir(parents=True, exist_ok=True)
@@ -149,8 +153,14 @@ class Runner:
         if self.writer is not None:
             for k, v in metrics.items():
                 self.writer.add_scalar(k, float(v), num_steps)
+        spans, before = tracing.snapshot(), self.spans
+        self.spans = spans
+        zero = {"calls": 0, "self_s": 0.0}
+        host_s = {name: s["self_s"] - before.get(name, zero)["self_s"] for name, s in spans.items()
+                  if s["calls"] != before.get(name, zero)["calls"]}
         rec = {"env_steps": int(num_steps), "wall_s": time.time() - self.t0,
-               "kernel_launches": MK.launches, **{k: float(v) for k, v in metrics.items()}}
+               "kernel_launches": MK.launches, "host_s": host_s,
+               **{k: float(v) for k, v in metrics.items()}}
         with open(self.metrics_log, "a") as f:
             f.write(json.dumps(rec) + "\n")
         if "eval/episode_reward" in metrics:

@@ -44,6 +44,7 @@ from open_duck_playground_torch.physics import collision as C
 from open_duck_playground_torch.physics import forward as F
 from open_duck_playground_torch.physics import maths
 from open_duck_playground_torch.physics.types import Model
+from open_duck_playground_torch.utils import tracing
 
 
 @dataclass(frozen=True)
@@ -397,103 +398,104 @@ class Joystick(DuckEnv):
     # ------------------------------------------------------------- step
     def step(self, state: State, action: torch.Tensor, draws: StepDraws,
              model: Optional[Model] = None) -> State:
-        model = model if model is not None else self._model
-        cfg = self._config
-        action = action.to(torch.float32)
-        info = dict(state.info)
-        B, nu = action.shape
+        with tracing.span("env.task"):
+            model = model if model is not None else self._model
+            cfg = self._config
+            action = action.to(torch.float32)
+            info = dict(state.info)
+            B, nu = action.shape
 
-        if self.use_imitation:
-            n = self.gait.nb_steps_in_period
-            imitation_i = torch.remainder(info["imitation_i"] + 1, n)
-            info["imitation_i"] = imitation_i
-            if self.obs_has_imitation_phase:
-                info["imitation_phase"] = self._phase(imitation_i)
-            cmd = info["command"]
-            info["current_reference_motion"] = self.gait.reference_frame(
-                cmd[:, 0], cmd[:, 1], cmd[:, 2], imitation_i)
-        else:
-            info["imitation_i"] = torch.zeros_like(info["imitation_i"])
+            if self.use_imitation:
+                n = self.gait.nb_steps_in_period
+                imitation_i = torch.remainder(info["imitation_i"] + 1, n)
+                info["imitation_i"] = imitation_i
+                if self.obs_has_imitation_phase:
+                    info["imitation_phase"] = self._phase(imitation_i)
+                cmd = info["command"]
+                info["current_reference_motion"] = self.gait.reference_frame(
+                    cmd[:, 0], cmd[:, 1], cmd[:, 2], imitation_i)
+            else:
+                info["imitation_i"] = torch.zeros_like(info["imitation_i"])
 
-        # action delay buffer
-        hist = torch.roll(info["action_history"], nu, dims=-1)
-        hist[:, :nu] = action
-        info["action_history"] = hist
-        rows = torch.arange(B, device=action.device)
-        action_delayed = hist.reshape(B, -1, nu)[rows, draws.action_delay.long()]
+            # action delay buffer
+            hist = torch.roll(info["action_history"], nu, dims=-1)
+            hist[:, :nu] = action
+            info["action_history"] = hist
+            rows = torch.arange(B, device=action.device)
+            action_delayed = hist.reshape(B, -1, nu)[rows, draws.action_delay.long()]
 
-        # random planar push added to the base velocity
-        push = torch.stack([torch.cos(draws.push_theta), torch.sin(draws.push_theta)], -1)
-        due = torch.remainder(info["push_step"] + 1, info["push_interval_steps"]) == 0
-        push = push * due[:, None]
-        push = push * cfg.push_config.enable
-        a = self._floating_base_qvel_addr
-        qvel = state.data.qvel.clone()
-        qvel[:, a : a + 2] += push * draws.push_magnitude[:, None]
-        data = state.data.replace(qvel=qvel)
+            # random planar push added to the base velocity
+            push = torch.stack([torch.cos(draws.push_theta), torch.sin(draws.push_theta)], -1)
+            due = torch.remainder(info["push_step"] + 1, info["push_interval_steps"]) == 0
+            push = push * due[:, None]
+            push = push * cfg.push_config.enable
+            a = self._floating_base_qvel_addr
+            qvel = state.data.qvel.clone()
+            qvel[:, a : a + 2] += push * draws.push_magnitude[:, None]
+            data = state.data.replace(qvel=qvel)
 
-        motor_targets = self._default_actuator + action_delayed * cfg.action_scale
-        if self.use_motor_speed_limits:
-            prev = info["motor_targets"]
-            lim = cfg.max_motor_velocity * self.dt
-            motor_targets = torch.clamp(motor_targets, prev - lim, prev + lim)
-        if self.has_head and cfg.head_direct_targets:
-            # the head servos take the head command; the policy's actions
-            # move the legs only
-            motor_targets = torch.cat([motor_targets[:, :5], info["command"][:, 3:7],
-                                       motor_targets[:, 9:]], -1)
+            motor_targets = self._default_actuator + action_delayed * cfg.action_scale
+            if self.use_motor_speed_limits:
+                prev = info["motor_targets"]
+                lim = cfg.max_motor_velocity * self.dt
+                motor_targets = torch.clamp(motor_targets, prev - lim, prev + lim)
+            if self.has_head and cfg.head_direct_targets:
+                # the head servos take the head command; the policy's actions
+                # move the legs only
+                motor_targets = torch.cat([motor_targets[:, :5], info["command"][:, 3:7],
+                                           motor_targets[:, 9:]], -1)
 
-        data = F.step(model, data, motor_targets, self.n_substeps)
-        info["motor_targets"] = motor_targets
+            data = F.step(model, data, motor_targets, self.n_substeps)
+            info["motor_targets"] = motor_targets
 
-        contact = C.feet_contact_flags(model, data.contact_dist)
-        contact_filt = contact | info["last_contact"]
-        first_contact = (info["feet_air_time"] > 0.0) * contact_filt
-        info["feet_air_time"] = info["feet_air_time"] + self.dt
-        p_fz = data.site_xpos[:, self._feet_site_id, -1]
-        info["swing_peak"] = torch.maximum(info["swing_peak"], p_fz)
+            contact = C.feet_contact_flags(model, data.contact_dist)
+            contact_filt = contact | info["last_contact"]
+            first_contact = (info["feet_air_time"] > 0.0) * contact_filt
+            info["feet_air_time"] = info["feet_air_time"] + self.dt
+            p_fz = data.site_xpos[:, self._feet_site_id, -1]
+            info["swing_peak"] = torch.maximum(info["swing_peak"], p_fz)
 
-        obs = self._get_obs(data, info, contact, draws.obs)
-        done = self._get_termination(data)
+            obs = self._get_obs(data, info, contact, draws.obs)
+            done = self._get_termination(data)
 
-        raw = self._get_reward(data, action, info, done, first_contact, contact)
-        scales = cfg.reward_config.scales
-        total = 0
-        for k, v in raw.items():
-            total = total + v * scales[k]
-        reward = torch.clamp(total * self.dt, 0.0, 10000.0)
+            raw = self._get_reward(data, action, info, done, first_contact, contact)
+            scales = cfg.reward_config.scales
+            total = 0
+            for k, v in raw.items():
+                total = total + v * scales[k]
+            reward = torch.clamp(total * self.dt, 0.0, 10000.0)
 
-        info["push"] = push
-        info["step"] = info["step"] + 1
-        info["push_step"] = info["push_step"] + 1
-        info["last_last_last_act"] = info["last_last_act"]
-        info["last_last_act"] = info["last_act"]
-        info["last_act"] = action
-        cmd_active = info["command"]  # this step's command, before resampling
-        resample = info["step"] > 500
-        info["command"] = torch.where(resample[:, None], draws.command, info["command"])
-        info["step"] = torch.where(done | resample, torch.zeros_like(info["step"]), info["step"])
-        info["feet_air_time"] = info["feet_air_time"] * ~contact
-        info["last_contact"] = contact
-        info["swing_peak"] = info["swing_peak"] * ~contact
+            info["push"] = push
+            info["step"] = info["step"] + 1
+            info["push_step"] = info["push_step"] + 1
+            info["last_last_last_act"] = info["last_last_act"]
+            info["last_last_act"] = info["last_act"]
+            info["last_act"] = action
+            cmd_active = info["command"]  # this step's command, before resampling
+            resample = info["step"] > 500
+            info["command"] = torch.where(resample[:, None], draws.command, info["command"])
+            info["step"] = torch.where(done | resample, torch.zeros_like(info["step"]), info["step"])
+            info["feet_air_time"] = info["feet_air_time"] * ~contact
+            info["last_contact"] = contact
+            info["swing_peak"] = info["swing_peak"] * ~contact
 
-        metrics = dict(state.metrics)
-        for k, v in raw.items():
-            sc = scales[k]
-            if sc != 0:
-                metrics[("reward/" if sc > 0 else "cost/") + k] = v if sc > 0 else -v
-        metrics["swing_peak"] = torch.mean(info["swing_peak"], -1)
-        local_vel = self.get_local_linvel(data)
-        gyro = self.get_gyro(data)
-        metrics["tracking_err/lin_vel"] = torch.linalg.vector_norm(
-            cmd_active[:, :2] - local_vel[:, :2], dim=-1)
-        metrics["tracking_err/ang_vel"] = torch.abs(cmd_active[:, 2] - gyro[:, 2])
-        if self.has_head:
-            head_q = self.get_actuator_joints_qpos(data.qpos)[:, 5:9]
-            metrics["tracking_err/head"] = torch.mean(torch.abs(head_q - cmd_active[:, 3:7]), -1)
+            metrics = dict(state.metrics)
+            for k, v in raw.items():
+                sc = scales[k]
+                if sc != 0:
+                    metrics[("reward/" if sc > 0 else "cost/") + k] = v if sc > 0 else -v
+            metrics["swing_peak"] = torch.mean(info["swing_peak"], -1)
+            local_vel = self.get_local_linvel(data)
+            gyro = self.get_gyro(data)
+            metrics["tracking_err/lin_vel"] = torch.linalg.vector_norm(
+                cmd_active[:, :2] - local_vel[:, :2], dim=-1)
+            metrics["tracking_err/ang_vel"] = torch.abs(cmd_active[:, 2] - gyro[:, 2])
+            if self.has_head:
+                head_q = self.get_actuator_joints_qpos(data.qpos)[:, 5:9]
+                metrics["tracking_err/head"] = torch.mean(torch.abs(head_q - cmd_active[:, 3:7]), -1)
 
-        return state.replace(data=data, obs=obs, reward=reward, done=done.to(reward.dtype),
-                             metrics=metrics, info=info)
+            return state.replace(data=data, obs=obs, reward=reward, done=done.to(reward.dtype),
+                                 metrics=metrics, info=info)
 
     def _get_termination(self, data) -> torch.Tensor:
         fall = self.get_gravity(data)[:, -1] < 0.0

@@ -14,6 +14,7 @@ import torch
 from open_duck_playground_torch.envs.env_types import State
 from open_duck_playground_torch.envs.randomize import DRDraws
 from open_duck_playground_torch.physics.types import Data
+from open_duck_playground_torch.utils import tracing
 
 
 def _bcast(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -83,62 +84,64 @@ class TrainingEnv:
         return [self._env.step_draws(gen, batch) for _ in range(self._action_repeat)]
 
     def reset(self, draws) -> State:
-        state = self._env.reset(draws, model=self._model)
-        # finite floor: a pathological randomized model must not cache NaN
-        # as the autoreset target
-        bad = ~env_finite(state)
-        state = state.replace(data=_sanitize(bad, state.data), obs=_sanitize(bad, state.obs))
-        B = state.reward.shape[0]
-        info = dict(state.info)
-        info["steps"] = torch.zeros(B, dtype=torch.float32, device=state.reward.device)
-        info["truncation"] = torch.zeros_like(info["steps"])
-        info["first_data"] = state.data
-        info["first_obs"] = state.obs
-        return state.replace(info=info)
+        with tracing.span("env.reset"):
+            state = self._env.reset(draws, model=self._model)
+            # finite floor: a pathological randomized model must not cache NaN
+            # as the autoreset target
+            bad = ~env_finite(state)
+            state = state.replace(data=_sanitize(bad, state.data), obs=_sanitize(bad, state.obs))
+            B = state.reward.shape[0]
+            info = dict(state.info)
+            info["steps"] = torch.zeros(B, dtype=torch.float32, device=state.reward.device)
+            info["truncation"] = torch.zeros_like(info["steps"])
+            info["first_data"] = state.data
+            info["first_obs"] = state.obs
+            return state.replace(info=info)
 
     def step(self, state: State, action: torch.Tensor, draws) -> State:
-        info = dict(state.info)
-        first_data = info.pop("first_data")
-        first_obs = info.pop("first_obs")
-        steps_prev = info.pop("steps")
-        info.pop("truncation")
+        with tracing.span("env.wrapper"):
+            info = dict(state.info)
+            first_data = info.pop("first_data")
+            first_obs = info.pop("first_obs")
+            steps_prev = info.pop("steps")
+            info.pop("truncation")
 
-        # autoreset happens on the step after done was reported
-        done_prev = state.done > 0
-        data = _where_done(done_prev, first_data, state.data)
-        obs = _where_done(done_prev, first_obs, state.obs)
-        steps_prev = torch.where(done_prev, torch.zeros_like(steps_prev), steps_prev)
-        state = state.replace(data=data, obs=obs, info=info)
+            # autoreset happens on the step after done was reported
+            done_prev = state.done > 0
+            data = _where_done(done_prev, first_data, state.data)
+            obs = _where_done(done_prev, first_obs, state.obs)
+            steps_prev = torch.where(done_prev, torch.zeros_like(steps_prev), steps_prev)
+            state = state.replace(data=data, obs=obs, info=info)
 
-        repeats = [draws] if self._action_repeat == 1 else draws
-        if len(repeats) != self._action_repeat:
-            raise ValueError(f"{len(repeats)} sets of step draws for action_repeat {self._action_repeat}")
-        nstate = state
-        for d in repeats:
-            nstate = self._env.step(nstate, action, d, model=self._model)
+            repeats = [draws] if self._action_repeat == 1 else draws
+            if len(repeats) != self._action_repeat:
+                raise ValueError(f"{len(repeats)} sets of step draws for action_repeat {self._action_repeat}")
+            nstate = state
+            for d in repeats:
+                nstate = self._env.step(nstate, action, d, model=self._model)
 
-        # quarantine non-finite envs: cached reset state, zero reward, done
-        bad = ~env_finite(nstate)
-        nstate = nstate.replace(
-            data=_where_done(bad, first_data, nstate.data),
-            obs=_where_done(bad, first_obs, nstate.obs),
-            reward=torch.where(bad, torch.zeros_like(nstate.reward), nstate.reward),
-            done=torch.where(bad, torch.ones_like(nstate.done), nstate.done),
-            info=_sanitize(bad, nstate.info),
-            metrics=_sanitize(bad, nstate.metrics),
-        )
+            # quarantine non-finite envs: cached reset state, zero reward, done
+            bad = ~env_finite(nstate)
+            nstate = nstate.replace(
+                data=_where_done(bad, first_data, nstate.data),
+                obs=_where_done(bad, first_obs, nstate.obs),
+                reward=torch.where(bad, torch.zeros_like(nstate.reward), nstate.reward),
+                done=torch.where(bad, torch.ones_like(nstate.done), nstate.done),
+                info=_sanitize(bad, nstate.info),
+                metrics=_sanitize(bad, nstate.metrics),
+            )
 
-        steps = steps_prev + self._action_repeat
-        at_limit = steps >= self._episode_length
-        done = torch.where(at_limit, torch.ones_like(nstate.done), nstate.done)
-        truncation = at_limit * (1 - nstate.done)
+            steps = steps_prev + self._action_repeat
+            at_limit = steps >= self._episode_length
+            done = torch.where(at_limit, torch.ones_like(nstate.done), nstate.done)
+            truncation = at_limit * (1 - nstate.done)
 
-        info = dict(nstate.info)
-        info["steps"] = steps
-        info["truncation"] = truncation
-        info["first_data"] = first_data
-        info["first_obs"] = first_obs
-        return nstate.replace(done=done, info=info)
+            info = dict(nstate.info)
+            info["steps"] = steps
+            info["truncation"] = truncation
+            info["first_data"] = first_data
+            info["first_obs"] = first_obs
+            return nstate.replace(done=done, info=info)
 
 
 class EvalEnv(TrainingEnv):
@@ -147,29 +150,31 @@ class EvalEnv(TrainingEnv):
     env's first done, then freeze. They live in `info["eval_metrics"]`."""
 
     def reset(self, draws) -> State:
-        state = super().reset(draws)
-        z = lambda: torch.zeros_like(state.reward)
-        info = dict(state.info)
-        info["eval_metrics"] = {
-            "episode_reward": z(),
-            "episode_length": z(),
-            "episode_done": z(),
-            "episode_metrics": {k: z() for k in state.metrics},
-        }
-        return state.replace(info=info)
+        with tracing.span("env.reset"):
+            state = super().reset(draws)
+            z = lambda: torch.zeros_like(state.reward)
+            info = dict(state.info)
+            info["eval_metrics"] = {
+                "episode_reward": z(),
+                "episode_length": z(),
+                "episode_done": z(),
+                "episode_metrics": {k: z() for k in state.metrics},
+            }
+            return state.replace(info=info)
 
     def step(self, state: State, action: torch.Tensor, draws) -> State:
-        info = dict(state.info)
-        em = info.pop("eval_metrics")
-        nstate = super().step(state.replace(info=info), action, draws)
-        alive = 1.0 - em["episode_done"]
-        em = {
-            "episode_reward": em["episode_reward"] + alive * nstate.reward,
-            "episode_length": em["episode_length"] + alive,
-            "episode_done": torch.maximum(em["episode_done"], nstate.done),
-            "episode_metrics": {k: acc + alive * nstate.metrics[k]
-                                for k, acc in em["episode_metrics"].items()},
-        }
-        ninfo = dict(nstate.info)
-        ninfo["eval_metrics"] = em
-        return nstate.replace(info=ninfo)
+        with tracing.span("env.wrapper"):
+            info = dict(state.info)
+            em = info.pop("eval_metrics")
+            nstate = super().step(state.replace(info=info), action, draws)
+            alive = 1.0 - em["episode_done"]
+            em = {
+                "episode_reward": em["episode_reward"] + alive * nstate.reward,
+                "episode_length": em["episode_length"] + alive,
+                "episode_done": torch.maximum(em["episode_done"], nstate.done),
+                "episode_metrics": {k: acc + alive * nstate.metrics[k]
+                                    for k, acc in em["episode_metrics"].items()},
+            }
+            ninfo = dict(nstate.info)
+            ninfo["eval_metrics"] = em
+            return nstate.replace(info=ninfo)

@@ -26,6 +26,7 @@ from open_duck_playground_torch.physics import smooth as S
 from open_duck_playground_torch.physics import solver as SV
 from open_duck_playground_torch.physics import structure
 from open_duck_playground_torch.physics.types import Data, Model
+from open_duck_playground_torch.utils import tracing
 
 
 def pin_f32() -> None:
@@ -129,12 +130,13 @@ def step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int) -> Data:
 
     CUDA tensors go through the CUDA kernel, CPU tensors through
     `step_reference`."""
-    if d.qpos.is_cuda:
-        from open_duck_playground_torch.physics import megakernel as MK
+    with tracing.span("env.physics"):
+        if d.qpos.is_cuda:
+            from open_duck_playground_torch.physics import megakernel as MK
 
-        pin_f32()
-        return MK.megakernel_step(m, d, ctrl, n_substeps)
-    return step_reference(m, d, ctrl, n_substeps)
+            pin_f32()
+            return MK.megakernel_step(m, d, ctrl, n_substeps)
+        return step_reference(m, d, ctrl, n_substeps)
 
 
 def init(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, ctrl: torch.Tensor) -> Data:

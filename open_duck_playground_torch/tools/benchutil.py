@@ -1,7 +1,8 @@
 """What the bench and profiling tools share: the device a run measures, a
 synchronize for its clock, the card's name and power limit, a timer, and
 the trace of a section on the card (kernel launches, host synchronizations,
-device busy time and idle share, the top kernels)."""
+device busy time and idle share, the top kernels, and where the program's
+own spans of `utils/tracing.py` launch and leave the card idle)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import warnings
 from typing import Dict, Optional, Sequence
 
 import torch
+
+from open_duck_playground_torch.utils import tracing
 
 
 def measured_device(device) -> torch.device:
@@ -67,9 +70,10 @@ def seconds_per_call(fn, dev: torch.device, reps: int = 1, warmup: int = 1) -> f
 #
 # A traced function takes `mark`, and wraps its parts in `with mark(name):`.
 # `no_marks` is what it gets when it is timed; `device_trace` and
-# `host_syncs` hand it their own.
+# `host_syncs` hand it their own. The marks share the profiler prefix of the
+# program's spans (`tracing.PREFIX`); `device_trace` reports the two apart.
 
-SECTION = "odp::"
+SECTION = tracing.PREFIX
 COPY_PREFIXES = ("Memcpy", "Memset")
 SYNC_REPORT = "called a synchronizing CUDA operation"
 
@@ -155,6 +159,45 @@ def _section_stats(ranges, device_events, launched_at, top: int) -> dict:
             "top_kernels": [{"name": n, "ms": sum(d) / 1e3, "count": len(d)} for n, d in ranked]}
 
 
+def span_stats(spans: Dict[str, list], window, device_events, launched_at, top: int) -> dict:
+    """The device events launched inside `window` (a host interval, us) by
+    the innermost of the program's spans (`spans`: name -> host intervals,
+    us) open at their launch, "other" outside every span: per span its
+    kernel launches, copies and device ms (they add up to the window's);
+    the share of the kernel launches made inside some span; and the `top`
+    idle gaps of the card (ms), each labelled by the innermost span open on
+    the host when the gap began."""
+    intervals = sorted((a, b, name) for name, rs in spans.items() for a, b in rs)
+
+    def innermost(t) -> str:
+        label = "other"
+        for a, b, name in intervals:
+            if a > t:
+                break
+            if t <= b:  # of the ranges around t, the latest to start is nested in the others
+                label = name
+        return label
+
+    inside = [e for e in device_events if window[0] <= launched_at(e) <= window[1]]
+    by_span: Dict[str, dict] = {}
+    for e in inside:
+        stats = by_span.setdefault(innermost(launched_at(e)), {"kernel_launches": 0, "copies": 0, "device_ms": 0.0})
+        stats["copies" if e.name.startswith(COPY_PREFIXES) else "kernel_launches"] += 1
+        stats["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+    kernels = sum(s["kernel_launches"] for s in by_span.values())
+    outside = by_span.get("other", {}).get("kernel_launches", 0)
+    runs: list = []
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in inside):
+        if runs and a <= runs[-1][1]:
+            runs[-1][1] = max(runs[-1][1], b)
+        else:
+            runs.append([a, b])
+    gaps = sorted(([innermost(a1), (b0 - a1) / 1e3] for (_, a1), (b0, _) in zip(runs, runs[1:])),
+                  key=lambda g: -g[1])
+    return {"spans": by_span, "launches_in_spans": (kernels - outside) / kernels if kernels else None,
+            "idle_gaps": gaps[:top]}
+
+
 def device_trace(fn, dev: torch.device, top: int = 10, named: Sequence[str] = ()) -> Optional[dict]:
     """Where `fn(mark)`'s time goes on the card, from `torch.profiler` with
     CPU and CUDA activities: kernel launches, copies, device busy time (the
@@ -167,14 +210,19 @@ def device_trace(fn, dev: torch.device, top: int = 10, named: Sequence[str] = ()
     in `named`, the whole run also reports the launches and device ms of
     the kernels whose names hold it. `whole["placed_by_launch"]` is the
     share of device events matched to their launching host call, and
-    `whole` also holds the whole run's `coverage`. Raises if
+    `whole` also holds the whole run's `coverage`. `spans` is the whole
+    run by the program's own spans (`span_stats`). Raises if
     the profiler saw no kernel: CUPTI gave no device events, and no share
     can be read. None on the CPU: there is no device to trace."""
     if dev.type != "cuda":
         return None
     from torch.profiler import record_function
 
+    marked: Dict[str, None] = {}
+
     def sync_mark(name):
+        marked[name] = None
+
         @contextlib.contextmanager
         def cm():
             torch.cuda.synchronize(dev)
@@ -206,16 +254,18 @@ def device_trace(fn, dev: torch.device, top: int = 10, named: Sequence[str] = ()
             if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(SECTION):
                 ranges.setdefault(e.name[len(SECTION):], []).append((e.time_range.start, e.time_range.end))
         if key == "whole":
-            out["whole"] = _section_stats(ranges["whole"], device, launched_at, top)
+            whole = ranges.pop("whole")
+            out["whole"] = _section_stats(whole, device, launched_at, top)
             out["whole"]["placed_by_launch"] = sum(e.id in launches for e in device) / len(device)
-            out["whole"].update(coverage(events, ranges["whole"][0]))
+            out["whole"].update(coverage(events, whole[0]))
+            out["spans"] = span_stats(ranges, whole[0], device, launched_at, top)
             out["named"] = {}
             for part in named:
                 hits = [e.time_range.end - e.time_range.start for e in device if part in e.name]
                 out["named"][part] = {"kernel_launches": len(hits), "device_ms": sum(hits) / 1e3}
         else:
-            out["sections"] = {name: _section_stats(r, device, launched_at, top) for name, r in ranges.items()
-                               if name != "whole"}
+            out["sections"] = {name: _section_stats(ranges[name], device, launched_at, top)
+                               for name in marked if name in ranges}
     return out
 
 

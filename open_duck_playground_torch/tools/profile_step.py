@@ -13,13 +13,18 @@ start (CUDA events on the card):
   2. the full `Joystick.step` under zero actions, its step draws taken in
      the loop as the trainer takes them;
   3. the gait oracle's `reference_frame` alone.
-The port adds `TrainingEnv.step` (episodes of 1000 steps, nominal model)
-under zero actions, and splits one control step into its layers: physics,
-task (`Joystick.step` minus physics, the draws included) and wrapper
-(`TrainingEnv.step` minus `Joystick.step`). Eager PyTorch has no compiled
-program to time, so each piece also shows its overhead as the CUDA kernel
-launches per control step, read with `torch.profiler` (`benchutil.
-device_trace`), with its host synchronizations and the device's idle share.
+The port adds one control step of `ppo.run_eval` (`ppo.eval_draws`, the
+stochastic policy of fresh networks, `EvalEnv.step`: episodes of 1000
+steps, nominal model), and splits it into its layers by the program's own
+spans (`utils/tracing.py`): `layers` holds the host us per control step of
+`policy`, `env.draws`, `env.wrapper`, `env.task` and `env.physics` (self
+times, the first call left out). Eager PyTorch has no compiled program to
+time, so each piece also shows its overhead as the CUDA kernel launches per
+control step, read with `torch.profiler` (`benchutil.device_trace`), with
+its host synchronizations and the device's idle share; for the control
+step the trace also gives each span's launches and device ms and the
+card's idle gaps labelled by the span open when each began
+(`trace["spans"]`), and `layers` each span's launches.
 
 Prints the JAX tool's text line per piece, then one JSON record.
 """
@@ -32,6 +37,9 @@ import json
 import torch
 
 from open_duck_playground_torch.tools import benchutil
+
+# the program's spans of one control step (`utils/tracing.py`)
+STEP_SPANS = ("policy", "env.draws", "env.wrapper", "env.task", "env.physics")
 
 
 def main(argv=None, device="cuda") -> dict:
@@ -46,9 +54,12 @@ def profile(argv=None, device="cuda"):
     its last timed run (`physics`: the Data after `--steps` chained steps
     from the reset states)."""
     from open_duck_playground_torch.envs.joystick import Joystick
-    from open_duck_playground_torch.envs.wrappers import TrainingEnv
+    from open_duck_playground_torch.envs.wrappers import EvalEnv
     from open_duck_playground_torch.physics import forward as F
     from open_duck_playground_torch.physics import megakernel as MK
+    from open_duck_playground_torch.train import ppo
+    from open_duck_playground_torch.train.config import PPOConfig
+    from open_duck_playground_torch.utils import tracing
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="flat_terrain_backlash")
@@ -64,8 +75,10 @@ def profile(argv=None, device="cuda"):
     m = env.model
     gen = torch.Generator(device=dev).manual_seed(0)
     state = env.reset(env.reset_draws(gen, n))
-    wrapped = TrainingEnv(env, episode_length=1000)
+    wrapped = EvalEnv(env, episode_length=1000)
     wstate = wrapped.reset(env.reset_draws(gen, n))
+    ts = ppo.init_training_state(wstate.obs, env.action_size, PPOConfig(), gen, device=dev)
+    policy = ppo.make_policy((ts.normalizer, ts.net))
     ctrl = m.key_ctrl.expand(n, -1).contiguous()
     act = torch.zeros((n, env.action_size), device=dev)
     cmd = state.info["command"]
@@ -76,8 +89,9 @@ def profile(argv=None, device="cuda"):
     def env_step(s):
         return env.step(s, act, env.step_draws(gen, n))
 
-    def wrapper_step(s):
-        return wrapped.step(s, act, wrapped.step_draws(gen, n))
+    def eval_step(s):
+        noise, draws = ppo.eval_draws(wrapped, n, False, gen)
+        return wrapped.step(s, policy(s.obs, noise)[0], draws)
 
     def oracle(i):
         out = env.gait.reference_frame(cmd[:, 0], cmd[:, 1], cmd[:, 2], i)
@@ -86,7 +100,7 @@ def profile(argv=None, device="cuda"):
     pieces = {
         "physics": ("megakernel physics only (10 substeps)", physics, state.data),
         "env_step": ("full env.step (batched)", env_step, state),
-        "training_env_step": ("TrainingEnv.step (autoreset, quarantine)", wrapper_step, wstate),
+        "eval_step": ("run_eval control step (policy, EvalEnv)", eval_step, wstate),
         "gait_oracle": ("gait oracle reference_frame", oracle, torch.zeros(n, dtype=torch.int32, device=dev)),
     }
     record = {"tool": "profile_step", "task": args.task, "envs": n, "steps": args.steps, "reps": args.reps}
@@ -99,13 +113,19 @@ def profile(argv=None, device="cuda"):
             outputs[key] = x
 
         before = MK.launches
+        tracing.reset()
         seconds = benchutil.seconds_per_call(run, dev, reps=args.reps)
+        if key == "eval_step":
+            spans = tracing.snapshot()
         calls = args.steps * (args.reps + 1)
         rate = n * args.steps / seconds
         us = 1e6 * seconds / args.steps
         print(f"{label:40s} {rate:12,.0f} env-steps/s  ({us:8.1f} us/batch-step)", flush=True)
         record[key] = {"env_steps_per_s": rate, "us_per_batch_step": us,
                        "megakernel_launches_per_step": (MK.launches - before) / calls}
+    # the control step's layers: each span's steady self time per call
+    layers = {f"{name.rsplit('.', 1)[-1]}_us": 1e6 * (s["self_s"] - s["first_self_s"]) / (s["calls"] - 1)
+              for name, s in spans.items() if name in STEP_SPANS}
 
     # one control step of each piece, traced
     traces = {}
@@ -116,21 +136,14 @@ def profile(argv=None, device="cuda"):
             traces[key]["idle_share_unprofiled"] = (
                 1 - 1e3 * traces[key]["trace"]["whole"]["device_busy_ms"] / record[key]["us_per_batch_step"])
         record[key].update(traces[key])
-    us = {k: record[k]["us_per_batch_step"] for k in pieces}
-    layers = {"physics_us": us["physics"], "task_us": us["env_step"] - us["physics"],
-              "wrapper_us": us["training_env_step"] - us["env_step"]}
     if dev.type == "cuda":
-        launches = {k: traces[k]["trace"]["whole"]["kernel_launches"] for k in pieces}
-        syncs = {k: traces[k]["host_syncs"]["whole"] for k in pieces}
-        layers.update(physics_launches=launches["physics"],
-                      task_launches=launches["env_step"] - launches["physics"],
-                      wrapper_launches=launches["training_env_step"] - launches["env_step"],
-                      task_host_syncs=syncs["env_step"] - syncs["physics"],
-                      wrapper_host_syncs=syncs["training_env_step"] - syncs["env_step"])
+        by_span = traces["eval_step"]["trace"]["spans"]["spans"]
+        layers.update({f"{name.rsplit('.', 1)[-1]}_launches": by_span.get(name, {}).get("kernel_launches", 0)
+                       for name in STEP_SPANS})
     record["layers"] = layers
     record["finite"] = bool(torch.isfinite(outputs["physics"].qpos).all()
                             and torch.isfinite(outputs["env_step"].reward).all()
-                            and torch.isfinite(outputs["training_env_step"].reward).all())
+                            and torch.isfinite(outputs["eval_step"].reward).all())
     record["device"] = benchutil.device_name(dev)
     record["card"] = benchutil.card(dev)
     print(json.dumps(record), flush=True)

@@ -47,6 +47,7 @@ from open_duck_playground_torch.parallel.mesh import Mesh, make_mesh
 from open_duck_playground_torch.train import checkpoint as CKPT
 from open_duck_playground_torch.train import gae, networks as N, running_stats as RS
 from open_duck_playground_torch.train.config import PPOConfig
+from open_duck_playground_torch.utils import tracing
 
 # optax.adam defaults (eps_root = 0)
 ADAM_BETAS = (0.9, 0.999)
@@ -94,14 +95,15 @@ def make_optimizer(net: N.PPONetworks, learning_rate: float) -> torch.optim.Adam
 
 def init_training_state(obs: Dict[str, torch.Tensor], action_size: int, cfg: PPOConfig,
                         generator: torch.Generator, device="cuda") -> TrainingState:
-    sizes = obs_sizes(obs)
-    net = N.PPONetworks.init(sizes, action_size, cfg.policy_hidden_layer_sizes, generator,
-                             device=device, policy_obs_key=cfg.policy_obs_key,
-                             value_hidden=cfg.value_hidden_layer_sizes,
-                             value_obs_key=cfg.value_obs_key,
-                             matmul_dtype=torch.bfloat16 if cfg.bf16_matmuls else None)
-    return TrainingState(net=net, optimizer=make_optimizer(net, cfg.learning_rate),
-                         normalizer=RS.init(sizes, device=device))
+    with tracing.span("ppo.init"):
+        sizes = obs_sizes(obs)
+        net = N.PPONetworks.init(sizes, action_size, cfg.policy_hidden_layer_sizes, generator,
+                                 device=device, policy_obs_key=cfg.policy_obs_key,
+                                 value_hidden=cfg.value_hidden_layer_sizes,
+                                 value_obs_key=cfg.value_obs_key,
+                                 matmul_dtype=torch.bfloat16 if cfg.bf16_matmuls else None)
+        return TrainingState(net=net, optimizer=make_optimizer(net, cfg.learning_rate),
+                             normalizer=RS.init(sizes, device=device))
 
 
 def host_copy(ts: TrainingState) -> TrainingState:
@@ -126,7 +128,7 @@ def make_policy(variables, deterministic: bool = False):
     normalizer, net = variables
 
     def policy(obs: Dict[str, torch.Tensor], noise: Optional[torch.Tensor] = None):
-        with torch.no_grad():
+        with tracing.span("policy"), torch.no_grad():
             logits = net.policy_logits(RS.normalize(normalizer, obs))
             if deterministic:
                 return N.deterministic_action(logits), {}
@@ -158,15 +160,18 @@ def generate_unroll(train_env: TrainingEnv, net: N.PPONetworks, normalizer: RS.R
     with torch.no_grad():
         for noise, env_draws in zip(draws.action_noise, draws.env):
             obs = env_state.obs
-            logits = net.policy_logits(RS.normalize(normalizer, obs))
-            raw = N.sample_raw(logits, noise)
-            env_state = train_env.step(env_state, N.postprocess(raw), env_draws)
+            with tracing.span("policy"):
+                logits = net.policy_logits(RS.normalize(normalizer, obs))
+                raw = N.sample_raw(logits, noise)
+                action = N.postprocess(raw)
+                log_prob = N.log_prob(logits, raw)
+            env_state = train_env.step(env_state, action, env_draws)
             if accumulate:
                 moments = RS.accumulate_moments(normalizer, moments, obs)
             steps.append({
                 "obs": obs,
                 "raw_action": raw,
-                "log_prob": N.log_prob(logits, raw),
+                "log_prob": log_prob,
                 "reward": env_state.reward,
                 "done": env_state.done,
                 "truncation": env_state.info["truncation"],
@@ -368,7 +373,8 @@ def training_step(ts: TrainingState, train_env: TrainingEnv, env, env_state: Sta
     synchronizes there)."""
     k, T = cfg.k_unrolls, cfg.unroll_length
     if unroll is None:
-        unroll = unroll_draws(train_env, cfg.num_envs, k * T, generator)
+        with tracing.span("env.draws"):
+            unroll = unroll_draws(train_env, cfg.num_envs, k * T, generator)
     if mesh is not None:
         sl = mesh.env_slice(cfg.num_envs)
         unroll = UnrollDraws(action_noise=unroll.action_noise[:, sl],
@@ -401,22 +407,26 @@ def training_step(ts: TrainingState, train_env: TrainingEnv, env, env_state: Sta
     collected: List[Dict[str, List[torch.Tensor]]] = [{}, {}, {}]
     for u, (perm, epoch_noise) in enumerate(zip(sgd.perms, sgd.entropy_noise)):
         for i in range(cfg.num_minibatches):
-            if members is None:
-                envs, noise = perm[i * cfg.batch_size : (i + 1) * cfg.batch_size], epoch_noise[i]
-            else:
-                pos, envs = members[u][i]
-                noise = epoch_noise[i].index_select(1, pos)
-            mb, mb_final = minibatch(data, final_obs, envs)
-            ts.optimizer.zero_grad(set_to_none=True)
-            total, metrics, maxima = loss_fn(ts.net, ts.normalizer, mb, mb_final, noise, cfg, mesh,
-                                             debug_loss_metrics)
-            total.backward()
-            if mesh is not None:
-                all_reduce_grads(ts.net, mesh)
-            norms = apply_gradients(ts, cfg.max_grad_norm)
-            for part, values in zip(collected, (metrics, maxima, norms)):
-                for name, v in values.items():
-                    part.setdefault(name, []).append(v.detach())
+            with tracing.span("sgd.minibatch"):
+                if members is None:
+                    envs, noise = perm[i * cfg.batch_size : (i + 1) * cfg.batch_size], epoch_noise[i]
+                else:
+                    pos, envs = members[u][i]
+                    noise = epoch_noise[i].index_select(1, pos)
+                mb, mb_final = minibatch(data, final_obs, envs)
+            with tracing.span("sgd.loss"):
+                ts.optimizer.zero_grad(set_to_none=True)
+                total, metrics, maxima = loss_fn(ts.net, ts.normalizer, mb, mb_final, noise, cfg, mesh,
+                                                 debug_loss_metrics)
+            with tracing.span("sgd.backward"):
+                total.backward()
+                if mesh is not None:
+                    all_reduce_grads(ts.net, mesh)
+            with tracing.span("sgd.optimizer"):
+                norms = apply_gradients(ts, cfg.max_grad_norm)
+                for part, values in zip(collected, (metrics, maxima, norms)):
+                    for name, v in values.items():
+                        part.setdefault(name, []).append(v.detach())
     stacked = [{name: torch.stack(v) for name, v in part.items()} for part in collected]
     if mesh is not None:
         for part, op in zip(stacked[:2], ("sum", "max")):
@@ -441,6 +451,15 @@ class EvalDraws:
     env: Sequence  # length step draws of the eval env
 
 
+def eval_draws(eval_env: EvalEnv, num_envs: int, deterministic: bool, generator: torch.Generator):
+    """The random numbers of one control step of `run_eval`, in its order:
+    (action noise, None when deterministic; the eval env's step draws)."""
+    with tracing.span("env.draws"):
+        noise = None if deterministic else torch.randn(
+            (num_envs, eval_env.action_size), generator=generator, device=generator.device)
+        return noise, eval_env.step_draws(generator, num_envs)
+
+
 def run_eval(eval_env: EvalEnv, variables, num_envs: int, length: int, deterministic: bool,
              generator: Optional[torch.Generator], draws: Optional[EvalDraws] = None
              ) -> Dict[str, float]:
@@ -450,15 +469,12 @@ def run_eval(eval_env: EvalEnv, variables, num_envs: int, length: int, determini
     tracking errors as per-step means and every other env metric as an
     episode sum (ppo.py:423-455 of the JAX package)."""
     policy = make_policy(variables, deterministic)
-    act = eval_env.action_size
     with torch.no_grad():
         state = eval_env.reset(eval_env.env.reset_draws(generator, num_envs) if draws is None
                                else draws.reset)
         for t in range(length):
             if draws is None:
-                noise = None if deterministic else torch.randn(
-                    (num_envs, act), generator=generator, device=generator.device)
-                step_draws = eval_env.step_draws(generator, num_envs)
+                noise, step_draws = eval_draws(eval_env, num_envs, deterministic, generator)
             else:
                 noise = None if deterministic else draws.action_noise[t]
                 step_draws = draws.env[t]

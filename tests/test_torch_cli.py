@@ -160,6 +160,13 @@ def test_main_writes_a_checkpoint_and_onnx_per_eval_and_resumes(tmp_path, capsys
     logged = [json.loads(line) for line in (tmp_path / "resumed" / "metrics.jsonl").open()]
     assert [r["env_steps"] for r in logged] == [32, 64]  # one JSON line per eval, the CLI's own log
     assert [r["kernel_launches"] for r in logged] == [0, 0]  # the plain physics on the CPU
+    # the spans' host seconds since the previous line: the restored run's
+    # set-up and initial eval, then a training step and an eval
+    sgd = {"sgd.minibatch", "sgd.loss", "sgd.backward", "sgd.optimizer"}
+    evaluated = {"policy", "env.draws", "env.wrapper", "env.task", "env.physics", "env.reset"}
+    assert set(logged[0]["host_s"]) == evaluated | {"ppo.init"}
+    assert set(logged[1]["host_s"]) == evaluated | sgd
+    assert all(v > 0 for r in logged for v in r["host_s"].values())
 
 
 def test_main_trains_randomized_and_evaluates_nominal(tmp_path, monkeypatch):

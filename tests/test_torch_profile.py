@@ -6,7 +6,7 @@ own functions:
   section, finite (on the CPU nothing is traced: the device sections are
   None, and `forward.step` is the plain engine, so no kernel launches);
 - `profile_step`'s physics section ends where `forward.step` chained
-  directly ends, bit for bit;
+  directly ends, bit for bit, and its layers are the program's spans;
 - the epoch `profile_train_step` times, from a `ppo.training_step`'s
   state and draws, ends at that step's parameters, bit for bit (the same
   operations in the same order);
@@ -26,6 +26,8 @@ own functions:
   XML;
 - `benchutil.coverage` on a hand-made trace counts the launches whose
   device event is missing and the least launch-to-start time, exactly;
+  `benchutil.span_stats` places its launches and idle gaps by the innermost
+  program span, exactly;
   `profile_window` builds and runs its control step (nothing traced).
 """
 
@@ -71,13 +73,14 @@ def finite_numbers(tree) -> bool:
 
 def test_profile_step_record_and_physics_bit_for_bit():
     record, outputs = profile_step.profile(["--envs", "8", "--steps", "2", "--reps", "1"], device="cpu")
-    pieces = ("physics", "env_step", "training_env_step", "gait_oracle")
+    pieces = ("physics", "env_step", "eval_step", "gait_oracle")
     assert set(pieces) | {"layers", "finite"} <= set(record) and record["finite"]
     for p in pieces:
         assert record[p]["env_steps_per_s"] > 0 and record[p]["us_per_batch_step"] > 0
         assert record[p]["megakernel_launches_per_step"] == 0  # the plain engine on the CPU
         assert record[p]["trace"] is None and record[p]["host_syncs"] is None
-    assert set(record["layers"]) == {"physics_us", "task_us", "wrapper_us"} and finite_numbers(record)
+    assert set(record["layers"]) == {"policy_us", "draws_us", "wrapper_us", "task_us", "physics_us"}
+    assert all(v > 0 for v in record["layers"].values()) and finite_numbers(record)
     env = Joystick("flat_terrain_backlash", device=CPU)
     gen = torch.Generator().manual_seed(0)
     d = env.reset(env.reset_draws(gen, 8)).data
@@ -354,6 +357,24 @@ def test_coverage_counts_the_launches_whose_device_event_is_lost():
     assert benchutil.coverage(events) == {"launch_calls": 4, "untraced_launches": 2, "least_launch_to_start_us": -1.5}
     assert benchutil.coverage(events[:1]) == {"launch_calls": 0, "untraced_launches": 0,
                                               "least_launch_to_start_us": None}
+
+
+def test_span_stats_places_launches_and_idle_gaps_by_the_innermost_span():
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = lambda name, i, start, end: types.SimpleNamespace(name=name, device_type=cuda, id=i,
+                                                           time_range=types.SimpleNamespace(start=start, end=end))
+    launched = {1: 1.0, 2: 3.0, 3: 6.0, 4: 12.0, 5: 25.0, 6: 40.0}
+    device = [ev("k_policy", 1, 2.0, 4.0), ev("k_wrapper", 2, 5.0, 6.0), ev("Memcpy HtoD", 3, 12.0, 12.5),
+              ev("mk_kernel", 4, 13.0, 21.0), ev("late", 5, 26.0, 27.0), ev("outside", 6, 41.0, 42.0)]
+    spans = {"policy": [(0.0, 2.0)], "env.wrapper": [(2.5, 20.0)], "env.physics": [(11.0, 14.0)]}
+    out = benchutil.span_stats(spans, (0.0, 30.0), device, lambda e: launched[e.id], top=3)
+    assert out["spans"] == {"policy": {"kernel_launches": 1, "copies": 0, "device_ms": pytest.approx(2e-3)},
+                            "env.wrapper": {"kernel_launches": 1, "copies": 1, "device_ms": pytest.approx(1.5e-3)},
+                            "env.physics": {"kernel_launches": 1, "copies": 0, "device_ms": pytest.approx(8e-3)},
+                            "other": {"kernel_launches": 1, "copies": 0, "device_ms": pytest.approx(1e-3)}}
+    assert out["launches_in_spans"] == 0.75
+    assert out["idle_gaps"] == [["env.wrapper", pytest.approx(6e-3)], ["other", pytest.approx(5e-3)],
+                                ["env.wrapper", pytest.approx(1e-3)]]
 
 
 def test_profile_window_runs_its_control_step_on_the_cpu():
