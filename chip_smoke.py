@@ -84,8 +84,11 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      and update seconds are printed;
  13. profile: the profiling tools through their own `main(argv)`:
      `tools.profile_step` (4096 envs x 50 steps: physics, env step,
-     run_eval's control step, gait oracle, each traced; 95% of the control
-     step's launches inside the program's spans), `tools.profile_train_step`
+     run_eval's control step with the env step's CUDA graph and with its
+     body eager, gait oracle, each traced; 95% of each control step's
+     launches inside the program's spans; under the graph the task and the
+     physics launch nothing, the body eager launches from both),
+     `tools.profile_train_step`
      at the full config (its eval cut to 128 envs x 200 steps; one control
      step and one SGD step traced: launches, host syncs, idle share, top
      kernels, by layer; each trace must hold a device event for every
@@ -1414,19 +1417,25 @@ def profile_phase(P, smi, specs, rows) -> int:
                 failures.append(f"{label}/{key}: the trace lost the device events of {whole['untraced_launches']} "
                                 f"of {whole['launch_calls']} launches")
 
-    pieces = ("physics", "env_step", "eval_step")
+    pieces = ("physics", "env_step", "eval_step", "eval_step_eager")
     r, got = call("profile_step", P.profile_step, ["--task", CLI_TASK, "--envs", "4096", "--steps",
                                                    str(PROFILE_STEPS), "--reps", str(PROFILE_STEP_REPS)])
     # timed runs of each piece, and one step in each of the three traced runs
     want = len(pieces) * ((PROFILE_STEP_REPS + 1) * PROFILE_STEPS + 3)
     if got != {"megakernel_step": want} or not r["finite"]:
         failures.append(f"profile_step: launches {got}, want {want}; finite {r['finite']}")
-    if [r[k]["megakernel_launches_per_step"] for k in (*pieces, "gait_oracle")] != [1, 1, 1, 0]:
+    if [r[k]["megakernel_launches_per_step"] for k in (*pieces, "gait_oracle")] != [1, 1, 1, 1, 0]:
         failures.append(f"profile_step: launches per step {[r[k]['megakernel_launches_per_step'] for k in pieces]}")
     traced_ok("profile_step", {k: r[k] for k in pieces})
-    in_spans = r["eval_step"]["trace"]["spans"]["launches_in_spans"]
-    if not in_spans >= 0.95:
-        failures.append(f"profile_step: {in_spans} of the control step's launches inside the program's spans")
+    for key in ("eval_step", "eval_step_eager"):
+        in_spans = r[key]["trace"]["spans"]["launches_in_spans"]
+        if not in_spans >= 0.95:
+            failures.append(f"profile_step: {in_spans} of {key}'s launches inside the program's spans")
+    # the graphed step launches the env step from one span, the eager body from its layers
+    graphed, eager = r["layers"], r["layers_eager"]
+    if not (graphed["graph_launches"] > 0 and graphed["task_launches"] == graphed["physics_launches"] == 0
+            and eager["task_launches"] > 0 and eager["physics_launches"] > 0 and eager["graph_launches"] == 0):
+        failures.append(f"profile_step: launches by span, graphed {graphed}, eager {eager}")
 
     cfg = P.cfg.PPOConfig()
     r, got = call("profile_train_step", P.profile_train_step,

@@ -131,29 +131,37 @@ class DuckEnv:
         ]
         self.actuator_joint_ids = [jid(n) for n in self.actuator_names]
         self.backlash_joint_ids = [jid(n) for n in self.backlash_joint_names]
-        self._actuator_qposadr = [s.jnt_qposadr[j] for j in self.actuator_joint_ids]
-        self._actuator_dofadr = [s.jnt_dofadr[j] for j in self.actuator_joint_ids]
-        self._backlash_qposadr = [s.jnt_qposadr[j] for j in self.backlash_joint_ids]
         fb = jid(self.floating_base_name)
         self._floating_base_qpos_addr = s.jnt_qposadr[fb]
         self._floating_base_qvel_addr = s.jnt_dofadr[fb]
-        # actuator slot of each backlash joint, in backlash-joint order
-        self._backlash_actuator_slot = [
-            self.actuator_names.index(n.removesuffix("_backlash"))
-            for n in self.backlash_joint_names
-        ]
         self._site_id = names["site"].index("imu")
-        self._feet_site_id = [names["site"].index(n) for n in FEET_SITES]
-
         self._sensor_slices = {
             n: (a, a + d)
             for n, a, d in zip(names["sensor"], names["sensor_adr"], names["sensor_dim"])
         }
-        self._foot_linvel_sensor_adr = [
+
+        # index tables as long tensors on the env's device, made once: a
+        # tensor indexed by a Python list copies the list to the card from
+        # pageable host memory at every call, a host synchronization that
+        # also keeps the step out of a CUDA graph
+        def index(values):
+            return torch.tensor(list(values), dtype=torch.long, device=self.device)
+
+        self._actuator_qposadr = index(s.jnt_qposadr[j] for j in self.actuator_joint_ids)
+        self._actuator_dofadr = index(s.jnt_dofadr[j] for j in self.actuator_joint_ids)
+        self._backlash_qposadr = index(s.jnt_qposadr[j] for j in self.backlash_joint_ids)
+        # actuator slot of each backlash joint, in backlash-joint order (empty
+        # on the robots without backlash joints)
+        self._backlash_actuator_slot = index(
+            self.actuator_names.index(n.removesuffix("_backlash"))
+            for n in self.backlash_joint_names
+        )
+        self._feet_site_id = index(names["site"].index(n) for n in FEET_SITES)
+        self._foot_linvel_sensor_adr = index(
             i
             for site in FEET_SITES
             for i in range(*self._sensor_slices[f"{site}_global_linvel"])
-        ]
+        )
 
     @property
     def dt(self) -> float:

@@ -271,6 +271,9 @@ class Joystick(DuckEnv):
             elif "_ankle" in name:
                 scale[i] = nc.ankle_pos
         self._qpos_noise_scale = scale.to(dev)
+        # the world's down, which the IMU's frame rotates into the gravity
+        # observation
+        self._down = torch.tensor([0.0, 0.0, -1.0], dtype=m.dtype, device=dev)
         self._metric_keys = [
             ("reward/" if v > 0 else "cost/") + k
             for k, v in config.reward_config.scales.items() if v != 0
@@ -385,8 +388,8 @@ class Joystick(DuckEnv):
         if self._imitation_ref_offset is not None:
             jpos = jpos + self._imitation_ref_offset
         legs = [i for i in range(self.action_size) if not (self.has_head and 5 <= i < 9)]
-        qa = [self._actuator_qposadr[i] for i in legs]
-        da = [self._actuator_dofadr[i] for i in legs]
+        qa = self._actuator_qposadr[legs]
+        da = self._actuator_dofadr[legs]
         g = gate[:, None]
         qpos[:, qa] = torch.where(g, jpos, qpos[:, qa])
         qvel[:, da] = torch.where(g, jvel, qvel[:, da])
@@ -511,8 +514,7 @@ class Joystick(DuckEnv):
         accelerometer = self.get_accelerometer(data)
         noisy_accel = accelerometer + noise.accelerometer * lvl * sc.accelerometer
 
-        down = torch.tensor([0.0, 0.0, -1.0], dtype=data.qpos.dtype, device=data.qpos.device)
-        gravity = torch.matmul(data.site_xmat[:, self._site_id].transpose(-1, -2), down)
+        gravity = torch.matmul(data.site_xmat[:, self._site_id].transpose(-1, -2), self._down)
         noisy_gravity = gravity + noise.gravity * lvl * sc.gravity
         # IMU delay buffer: maintained, but the reference's observation does
         # not use the delayed reading

@@ -64,7 +64,11 @@ def orientation(torso_zaxis):
     return _nn(torch.sum(torch.square(torso_zaxis[..., :2]), -1))
 
 
-_LEGS = [0, 1, 2, 3, 4, 9, 10, 11, 12, 13]  # 5 left leg, 4 head, 5 right leg
+def _legs(x):
+    """The 10 leg slots of 14 (5 left leg, 4 head, 5 right leg), by slices:
+    a tensor indexed by a Python list copies the list to the card at every
+    call, a host synchronization."""
+    return torch.cat([x[..., :5], x[..., 9:]], -1)
 
 
 def stand_still(cmd, joints_qpos, joints_qvel, default_pose, ignore_head=False):
@@ -73,8 +77,8 @@ def stand_still(cmd, joints_qpos, joints_qvel, default_pose, ignore_head=False):
     no-head robot)."""
     cmd_norm = torch.linalg.vector_norm(cmd[..., :3], dim=-1)
     if ignore_head and joints_qpos.shape[-1] != 10:  # on the no-head robot every joint is a leg
-        joints_qpos, joints_qvel = joints_qpos[..., _LEGS], joints_qvel[..., _LEGS]
-        default_pose = default_pose[..., _LEGS]
+        joints_qpos, joints_qvel = _legs(joints_qpos), _legs(joints_qvel)
+        default_pose = _legs(default_pose)
     pose = torch.sum(torch.abs(joints_qpos - default_pose), -1)
     vel = torch.sum(torch.abs(joints_qvel), -1)
     return _nn(pose + vel) * (cmd_norm < 0.01)

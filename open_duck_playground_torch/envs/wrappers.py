@@ -11,6 +11,7 @@ from typing import Callable, Optional
 
 import torch
 
+from open_duck_playground_torch.envs import step_graph
 from open_duck_playground_torch.envs.env_types import State
 from open_duck_playground_torch.envs.randomize import DRDraws
 from open_duck_playground_torch.physics.types import Data
@@ -147,7 +148,15 @@ class TrainingEnv:
 class EvalEnv(TrainingEnv):
     """Adds the per-episode sums of the evaluator (brax EvalWrapper
     semantics): reward, length and every env metric accumulate until an
-    env's first done, then freeze. They live in `info["eval_metrics"]`."""
+    env's first done, then freeze. They live in `info["eval_metrics"]`.
+
+    On CUDA tensors under `torch.no_grad()` (`ppo.run_eval`), `step`
+    replays a CUDA graph of its whole body, one per input signature, kept
+    by this object (`envs/step_graph.py`); `_step` is the body, eager."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._graphs = step_graph.StepGraphs()
 
     def reset(self, draws) -> State:
         with tracing.span("env.reset"):
@@ -164,17 +173,20 @@ class EvalEnv(TrainingEnv):
 
     def step(self, state: State, action: torch.Tensor, draws) -> State:
         with tracing.span("env.wrapper"):
-            info = dict(state.info)
-            em = info.pop("eval_metrics")
-            nstate = super().step(state.replace(info=info), action, draws)
-            alive = 1.0 - em["episode_done"]
-            em = {
-                "episode_reward": em["episode_reward"] + alive * nstate.reward,
-                "episode_length": em["episode_length"] + alive,
-                "episode_done": torch.maximum(em["episode_done"], nstate.done),
-                "episode_metrics": {k: acc + alive * nstate.metrics[k]
-                                    for k, acc in em["episode_metrics"].items()},
-            }
-            ninfo = dict(nstate.info)
-            ninfo["eval_metrics"] = em
-            return nstate.replace(info=ninfo)
+            return self._graphs(self._step, (state, action, draws), self._model)
+
+    def _step(self, state: State, action: torch.Tensor, draws) -> State:
+        info = dict(state.info)
+        em = info.pop("eval_metrics")
+        nstate = super().step(state.replace(info=info), action, draws)
+        alive = 1.0 - em["episode_done"]
+        em = {
+            "episode_reward": em["episode_reward"] + alive * nstate.reward,
+            "episode_length": em["episode_length"] + alive,
+            "episode_done": torch.maximum(em["episode_done"], nstate.done),
+            "episode_metrics": {k: acc + alive * nstate.metrics[k]
+                                for k, acc in em["episode_metrics"].items()},
+        }
+        ninfo = dict(nstate.info)
+        ninfo["eval_metrics"] = em
+        return nstate.replace(info=ninfo)

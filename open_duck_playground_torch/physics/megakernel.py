@@ -39,6 +39,7 @@ the plain version, `forward.step_reference`. The kernel is built with `nvcc` at 
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -72,7 +73,8 @@ SENSOR_KINDS = (
     "framequat",
 )
 
-# Kernel launches since the last reset; one per `megakernel_step` on a card.
+# Kernel launches since the last reset; one per `megakernel_step` on a card,
+# and one per replay of a CUDA graph that captured one (`Captured`).
 # `launches_hfield` counts those of them that ran the heightfield build,
 # `launches_dense` those on the degenerate partition; each built library
 # counts its own (`kernel(spec).launches`).
@@ -592,8 +594,10 @@ class _Kernel:
         if lib.mk_model_size() != ctypes.sizeof(self.struct_type):
             raise RuntimeError("MkModel layout differs between megakernel.cuh and the wrapper")
         # per device index: the model whose structure is in that device's
-        # memory, and its height table (None on a plane)
+        # memory (its key, and the last model object that had that key), and
+        # its height table (None on a plane)
         self._uploaded: Dict[int, Tuple] = {}
+        self._last: Dict[int, Model] = {}
         self._hfield: Dict[int, Optional[torch.Tensor]] = {}
 
     def upload(self, m: Model) -> Optional[torch.Tensor]:
@@ -603,19 +607,21 @@ class _Kernel:
         heightfield model, once per model. Domain randomization replaces
         only the per-env fields, so a randomized model keeps the upload.
         Returns the height table (None on a plane)."""
+        dev = torch.cuda.current_device()
+        if self._last.get(dev) is m:  # a frozen model: the same object, the same key
+            return self._hfield[dev]
         key = (m.spec,) + tuple(
             getattr(m, f) for f in m.__dataclass_fields__ if f != "spec" and f not in RANDOMIZED_FIELDS
         )
-        dev = torch.cuda.current_device()
         done = self._uploaded.get(dev, ())
-        if len(key) == len(done) and all(a is b for a, b in zip(key, done)):
-            return self._hfield[dev]
-        st = model_struct(m, self.dense)
-        err = self.lib.mk_set_model(ctypes.byref(st))
-        if err:
-            raise RuntimeError(f"mk_set_model failed: CUDA error {err}")
-        self._uploaded[dev] = key
-        self._hfield[dev] = hfield_table(m) if m.spec.floor_is_hfield else None
+        if not (len(key) == len(done) and all(a is b for a, b in zip(key, done))):
+            st = model_struct(m, self.dense)
+            err = self.lib.mk_set_model(ctypes.byref(st))
+            if err:
+                raise RuntimeError(f"mk_set_model failed: CUDA error {err}")
+            self._uploaded[dev] = key
+            self._hfield[dev] = hfield_table(m) if m.spec.floor_is_hfield else None
+        self._last[dev] = m
         return self._hfield[dev]
 
     def info(self) -> Dict[str, int]:
@@ -648,12 +654,55 @@ def kernel(spec: ModelSpec, dense: bool = False) -> _Kernel:
     return _KERNELS[key]
 
 
+class Captured:
+    """The kernel launches made while a CUDA graph was captured (`capture`):
+    for each, the device, the built kernel, the model and every tensor
+    whose device address the launch baked into the graph. The graph's
+    memory pool does not see the pointers ctypes passes, so the holder of
+    the graph keeps this object with it."""
+
+    def __init__(self):
+        self.launches: List[Tuple[torch.device, _Kernel, Model, List[torch.Tensor]]] = []
+
+    def before_replay(self) -> None:
+        """What an eager launch does on the host, before each replay: the
+        model's structure tables put in device memory (another model may
+        have been uploaded since the capture), and the launch counted."""
+        for dev, k, m, _ in self.launches:
+            with torch.cuda.device(dev):
+                k.upload(m)
+            _count(k, m)
+
+
+_capturing: Optional[Captured] = None
+
+
+@contextlib.contextmanager
+def capture():
+    """Inside the block, `megakernel_step` records its launches in the
+    `Captured` it yields and counts none of them: under a CUDA graph's
+    capture the kernel runs only when the graph is replayed."""
+    global _capturing
+    outer, _capturing = _capturing, Captured()
+    try:
+        yield _capturing
+    finally:
+        _capturing = outer
+
+
+def _count(k: _Kernel, m: Model) -> None:
+    global launches, launches_hfield, launches_dense
+    launches += 1
+    k.launches += 1
+    launches_hfield += int(m.spec.floor_is_hfield)
+    launches_dense += int(k.dims["NROOT"] == 0)
+
+
 def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int,
                     dense: bool = False) -> Data:
     """n_substeps substeps of every env in one launch of the CUDA kernel.
     Takes CUDA tensors only (`forward.step` routes CPU tensors to the plain
     version). `dense` chooses the build as in `kernel`."""
-    global launches, launches_hfield, launches_dense
     if not d.qpos.is_cuda:
         raise TypeError(f"the CUDA kernel takes CUDA tensors, got qpos on {d.qpos.device}")
     k = kernel(m.spec, dense)
@@ -665,8 +714,8 @@ def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int,
         err = k.lib.mk_step(ptrs, d.qpos.shape[0], n_substeps, stream)
     if err:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
-    launches += 1
-    k.launches += 1
-    launches_hfield += int(m.spec.floor_is_hfield)
-    launches_dense += int(k.dims["NROOT"] == 0)
+    if _capturing is not None:
+        _capturing.launches.append((d.qpos.device, k, m, inputs + outputs))
+    else:
+        _count(k, m)
     return data_from_outputs(d, ctrl, outputs)

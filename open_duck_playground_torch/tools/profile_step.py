@@ -14,17 +14,23 @@ start (CUDA events on the card):
      the loop as the trainer takes them;
   3. the gait oracle's `reference_frame` alone.
 The port adds one control step of `ppo.run_eval` (`ppo.eval_draws`, the
-stochastic policy of fresh networks, `EvalEnv.step`: episodes of 1000
-steps, nominal model), and splits it into its layers by the program's own
-spans (`utils/tracing.py`): `layers` holds the host us per control step of
-`policy`, `env.draws`, `env.wrapper`, `env.task` and `env.physics` (self
-times, the first call left out). Eager PyTorch has no compiled program to
-time, so each piece also shows its overhead as the CUDA kernel launches per
-control step, read with `torch.profiler` (`benchutil.device_trace`), with
-its host synchronizations and the device's idle share; for the control
-step the trace also gives each span's launches and device ms and the
-card's idle gaps labelled by the span open when each began
-(`trace["spans"]`), and `layers` each span's launches.
+stochastic policy of fresh networks, `EvalEnv.step` under no grad, so that
+on the card the env step replays its CUDA graph: episodes of 1000 steps,
+nominal model), and the same control step with the env step's body run
+eagerly (`eval_step_eager`: `EvalEnv._step` inside the wrapper's span).
+Each is split into its layers by the program's own spans
+(`utils/tracing.py`): `layers` (the graphed step) and `layers_eager` hold
+the host us per control step of `policy`, `env.draws`, `env.wrapper`,
+`env.graph`, `env.task` and `env.physics` (self times, the first call left
+out; a span that closed in under half the piece's calls, such as the task
+under the graph, which runs only in its warm-up and capture, is left out).
+Eager PyTorch has no compiled program to time, so each piece also shows
+its overhead as the CUDA kernel launches per control step, read with
+`torch.profiler` (`benchutil.device_trace`), with its host
+synchronizations and the device's idle share; for the control steps the
+trace also gives each span's launches and device ms and the card's idle
+gaps labelled by the span open when each began (`trace["spans"]`), and
+the layers each span's launches.
 
 Prints the JAX tool's text line per piece, then one JSON record.
 """
@@ -39,7 +45,9 @@ import torch
 from open_duck_playground_torch.tools import benchutil
 
 # the program's spans of one control step (`utils/tracing.py`)
-STEP_SPANS = ("policy", "env.draws", "env.wrapper", "env.task", "env.physics")
+STEP_SPANS = ("policy", "env.draws", "env.wrapper", "env.graph", "env.task", "env.physics")
+# the two control steps of `run_eval`, graphed and eager, and their layers
+CONTROL_STEPS = {"eval_step": "layers", "eval_step_eager": "layers_eager"}
 
 
 def main(argv=None, device="cuda") -> dict:
@@ -90,8 +98,16 @@ def profile(argv=None, device="cuda"):
         return env.step(s, act, env.step_draws(gen, n))
 
     def eval_step(s):
-        noise, draws = ppo.eval_draws(wrapped, n, False, gen)
-        return wrapped.step(s, policy(s.obs, noise)[0], draws)
+        with torch.no_grad():  # as in `ppo.run_eval`
+            noise, draws = ppo.eval_draws(wrapped, n, False, gen)
+            return wrapped.step(s, policy(s.obs, noise)[0], draws)
+
+    def eval_step_eager(s):
+        with torch.no_grad():
+            noise, draws = ppo.eval_draws(wrapped, n, False, gen)
+            action = policy(s.obs, noise)[0]
+            with tracing.span("env.wrapper"):
+                return wrapped._step(s, action, draws)
 
     def oracle(i):
         out = env.gait.reference_frame(cmd[:, 0], cmd[:, 1], cmd[:, 2], i)
@@ -101,10 +117,12 @@ def profile(argv=None, device="cuda"):
         "physics": ("megakernel physics only (10 substeps)", physics, state.data),
         "env_step": ("full env.step (batched)", env_step, state),
         "eval_step": ("run_eval control step (policy, EvalEnv)", eval_step, wstate),
+        "eval_step_eager": ("run_eval control step, env step eager", eval_step_eager, wstate),
         "gait_oracle": ("gait oracle reference_frame", oracle, torch.zeros(n, dtype=torch.int32, device=dev)),
     }
     record = {"tool": "profile_step", "task": args.task, "envs": n, "steps": args.steps, "reps": args.reps}
-    outputs = {}
+    outputs, spans = {}, {}
+    calls = args.steps * (args.reps + 1)
     for key, (label, fn, start) in pieces.items():
         def run(fn=fn, start=start, key=key):
             x = start
@@ -115,17 +133,16 @@ def profile(argv=None, device="cuda"):
         before = MK.launches
         tracing.reset()
         seconds = benchutil.seconds_per_call(run, dev, reps=args.reps)
-        if key == "eval_step":
-            spans = tracing.snapshot()
-        calls = args.steps * (args.reps + 1)
+        spans[key] = tracing.snapshot()
         rate = n * args.steps / seconds
         us = 1e6 * seconds / args.steps
         print(f"{label:40s} {rate:12,.0f} env-steps/s  ({us:8.1f} us/batch-step)", flush=True)
         record[key] = {"env_steps_per_s": rate, "us_per_batch_step": us,
                        "megakernel_launches_per_step": (MK.launches - before) / calls}
-    # the control step's layers: each span's steady self time per call
-    layers = {f"{name.rsplit('.', 1)[-1]}_us": 1e6 * (s["self_s"] - s["first_self_s"]) / (s["calls"] - 1)
-              for name, s in spans.items() if name in STEP_SPANS}
+    # the control steps' layers: each span's steady self time per call
+    for key, layers in CONTROL_STEPS.items():
+        record[layers] = {f"{name.rsplit('.', 1)[-1]}_us": 1e6 * (s["self_s"] - s["first_self_s"]) / (s["calls"] - 1)
+                          for name, s in spans[key].items() if name in STEP_SPANS and 2 * s["calls"] >= calls}
 
     # one control step of each piece, traced
     traces = {}
@@ -137,13 +154,13 @@ def profile(argv=None, device="cuda"):
                 1 - 1e3 * traces[key]["trace"]["whole"]["device_busy_ms"] / record[key]["us_per_batch_step"])
         record[key].update(traces[key])
     if dev.type == "cuda":
-        by_span = traces["eval_step"]["trace"]["spans"]["spans"]
-        layers.update({f"{name.rsplit('.', 1)[-1]}_launches": by_span.get(name, {}).get("kernel_launches", 0)
-                       for name in STEP_SPANS})
-    record["layers"] = layers
+        for key, layers in CONTROL_STEPS.items():
+            by_span = traces[key]["trace"]["spans"]["spans"]
+            record[layers].update({f"{name.rsplit('.', 1)[-1]}_launches": by_span.get(name, {}).get("kernel_launches", 0)
+                                   for name in STEP_SPANS})
     record["finite"] = bool(torch.isfinite(outputs["physics"].qpos).all()
                             and torch.isfinite(outputs["env_step"].reward).all()
-                            and torch.isfinite(outputs["eval_step"].reward).all())
+                            and all(torch.isfinite(outputs[key].reward).all() for key in CONTROL_STEPS))
     record["device"] = benchutil.device_name(dev)
     record["card"] = benchutil.card(dev)
     print(json.dumps(record), flush=True)

@@ -32,8 +32,9 @@ The spans of the port, where the work happens:
 | `policy` | `ppo.make_policy`'s policy; `ppo.generate_unroll`'s logits, sample and log-prob | control step |
 | `env.draws` | `ppo.eval_draws` (`run_eval`); `ppo.unroll_draws` in `training_step` | control step; training step |
 | `env.wrapper` | `TrainingEnv.step`, `EvalEnv.step`: autoreset, quarantine, episode sums | control step |
-| `env.task` | `Joystick.step` (`Standing` inherits it) less the physics | control step |
-| `env.physics` | `physics/forward.py:step`: the megakernel's packing, launch and unpacking, or the plain engine | control step |
+| `env.graph` | `EvalEnv.step` replaying its CUDA graph (`envs/step_graph.py`): copy-in, replay, copy-out | replay |
+| `env.task` | `Joystick.step` (`Standing` inherits it) less the physics; under the graph only its warm-up and capture | control step |
+| `env.physics` | `physics/forward.py:step`: the megakernel's packing, launch and unpacking, or the plain engine; as `env.task` | control step |
 | `env.reset` | `TrainingEnv.reset`, `EvalEnv.reset` | reset |
 | `ppo.init` | `ppo.init_training_state`: networks and Adam | run |
 | `sgd.minibatch`, `sgd.loss`, `sgd.backward`, `sgd.optimizer` | `ppo.training_step`'s SGD step: the gather; `zero_grad` and `loss_fn`; `backward` (and the gradient all-reduce under a mesh); `apply_gradients` and the metrics kept | SGD step |

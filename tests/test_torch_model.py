@@ -78,13 +78,15 @@ def test_env_index_tables_equal_jax():
     for name in ("actuator_names", "joint_names", "backlash_joint_names",
                  "actuator_joint_ids", "backlash_joint_ids"):
         assert list(getattr(tenv, name)) == list(getattr(jenv, name)), name
+    # the port keeps its index tables as long tensors on the env's device
     for name in ("_actuator_qposadr", "_actuator_dofadr", "_backlash_qposadr",
                  "_backlash_actuator_slot", "_feet_site_id"):
-        assert list(getattr(tenv, name)) == [int(x) for x in getattr(jenv, name)], name
+        assert getattr(tenv, name).dtype == torch.long, name
+        assert getattr(tenv, name).tolist() == [int(x) for x in getattr(jenv, name)], name
     for name in ("_floating_base_qpos_addr", "_floating_base_qvel_addr", "_site_id"):
         assert getattr(tenv, name) == int(getattr(jenv, name)), name
     assert tenv._sensor_slices == jenv._sensor_slices
-    assert tenv._foot_linvel_sensor_adr == [int(x) for x in jenv._foot_linvel_sensor_adr.ravel()]
+    assert tenv._foot_linvel_sensor_adr.tolist() == [int(x) for x in jenv._foot_linvel_sensor_adr.ravel()]
     np.testing.assert_array_equal(tenv._init_q.numpy(), np.asarray(jenv._init_q))
     np.testing.assert_array_equal(tenv._default_actuator.numpy(), np.asarray(jenv._default_actuator))
     np.testing.assert_array_equal(tenv._qpos_noise_scale.numpy(), np.asarray(jenv._qpos_noise_scale))

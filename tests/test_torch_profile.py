@@ -6,7 +6,8 @@ own functions:
   section, finite (on the CPU nothing is traced: the device sections are
   None, and `forward.step` is the plain engine, so no kernel launches);
 - `profile_step`'s physics section ends where `forward.step` chained
-  directly ends, bit for bit, and its layers are the program's spans;
+  directly ends, bit for bit, and the layers of both its control steps
+  (the env step graphed on the card, and eager) are the program's spans;
 - the epoch `profile_train_step` times, from a `ppo.training_step`'s
   state and draws, ends at that step's parameters, bit for bit (the same
   operations in the same order);
@@ -73,14 +74,17 @@ def finite_numbers(tree) -> bool:
 
 def test_profile_step_record_and_physics_bit_for_bit():
     record, outputs = profile_step.profile(["--envs", "8", "--steps", "2", "--reps", "1"], device="cpu")
-    pieces = ("physics", "env_step", "eval_step", "gait_oracle")
-    assert set(pieces) | {"layers", "finite"} <= set(record) and record["finite"]
+    pieces = ("physics", "env_step", "eval_step", "eval_step_eager", "gait_oracle")
+    assert set(pieces) | {"layers", "layers_eager", "finite"} <= set(record) and record["finite"]
     for p in pieces:
         assert record[p]["env_steps_per_s"] > 0 and record[p]["us_per_batch_step"] > 0
         assert record[p]["megakernel_launches_per_step"] == 0  # the plain engine on the CPU
         assert record[p]["trace"] is None and record[p]["host_syncs"] is None
-    assert set(record["layers"]) == {"policy_us", "draws_us", "wrapper_us", "task_us", "physics_us"}
-    assert all(v > 0 for v in record["layers"].values()) and finite_numbers(record)
+    # on the CPU both control steps run the env step eagerly: no graph span
+    for layers in ("layers", "layers_eager"):
+        assert set(record[layers]) == {"policy_us", "draws_us", "wrapper_us", "task_us", "physics_us"}
+        assert all(v > 0 for v in record[layers].values())
+    assert finite_numbers(record)
     env = Joystick("flat_terrain_backlash", device=CPU)
     gen = torch.Generator().manual_seed(0)
     d = env.reset(env.reset_draws(gen, 8)).data

@@ -169,19 +169,21 @@ def span_metrics():
 
 
 def test_the_benchmark_reads_seven_program_spans():
+    # seven spans, and the share of the env steps the graph replayed
     assert sorted(m["name"] for m in span_metrics()) == sorted(
         ["policy_host_ms.eval", "draws_host_ms.eval", "wrapper_host_ms.eval", "task_host_ms.eval",
-         "physics_host_ms.eval", "ppo_init_s.eval", "reset_first_s.eval"])
+         "physics_host_ms.eval", "ppo_init_s.eval", "reset_first_s.eval", "env_graph_share.eval"])
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in span_metrics()])
 def test_each_span_metric_reads_a_finite_number(clock, metric):
     read = manifest.metric_reader(manifest.BENCH_DIR, metric)
     assert read({}) is None  # no span closed: nothing to read, as in a program without them
-    for name in (*STEP_SPANS, "ppo.init", "env.reset"):
+    for name in (*STEP_SPANS, "env.graph", "ppo.init", "env.reset"):
         for seconds in (3, 1, 1):
             with tracing.span(name):
                 clock.advance(seconds)
     value = read({})
     assert isinstance(value, float) and math.isfinite(value) and value > 0
-    assert value == (3.0 if metric.split(".")[0] in ("ppo_init_s", "reset_first_s") else 1e3)
+    kind = metric.split(".")[0]
+    assert value == (3.0 if kind in ("ppo_init_s", "reset_first_s") else 100.0 if kind == "env_graph_share" else 1e3)
