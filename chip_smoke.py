@@ -1431,10 +1431,13 @@ def profile_phase(P, smi, specs, rows) -> int:
         in_spans = r[key]["trace"]["spans"]["launches_in_spans"]
         if not in_spans >= 0.95:
             failures.append(f"profile_step: {in_spans} of {key}'s launches inside the program's spans")
-    # the graphed step launches the env step from one span, the eager body from its layers
+    # the graphed step launches the env step from one span and the draws and
+    # the policy from another, the eager body from its layers
     graphed, eager = r["layers"], r["layers_eager"]
     if not (graphed["graph_launches"] > 0 and graphed["task_launches"] == graphed["physics_launches"] == 0
-            and eager["task_launches"] > 0 and eager["physics_launches"] > 0 and eager["graph_launches"] == 0):
+            and graphed["act_graph_launches"] > 0 and graphed["policy_launches"] == graphed["draws_launches"] == 0
+            and eager["task_launches"] > 0 and eager["physics_launches"] > 0 and eager["graph_launches"] == 0
+            and eager["policy_launches"] > 0 and eager["draws_launches"] > 0 and eager["act_graph_launches"] == 0):
         failures.append(f"profile_step: launches by span, graphed {graphed}, eager {eager}")
 
     cfg = P.cfg.PPOConfig()

@@ -1,11 +1,15 @@
-"""CUDA graphs of the evaluator's env step.
+"""CUDA graphs of the evaluator's control step.
 
 `EvalEnv.step` on CUDA tensors under `torch.no_grad()` replays its whole
 body (the wrapper, the task and the physics launch, ~385 kernels) as one
-CUDA graph instead of launching it kernel by kernel from Python.
-`StepGraphs` keys the graphs on what the input shows: the structure of
-the arguments (state, action, draws) with each tensor's shape, dtype and
-device, and the model object. For one key:
+CUDA graph instead of launching it kernel by kernel from Python; in front
+of it `ppo.run_eval` replays a second graph, of the step's random draws
+and the policy (`ppo.eval_actor`, ~90 kernels). `StepGraphs` keys the
+graphs on what the input shows: the structure of the arguments (for the
+env step: state, action, draws) with each tensor's shape, dtype and
+device, and what the caller names besides: the model the body computes
+with (the robot's; the policy's network) and the generator it draws
+from, by identity, and hashable values. For one key:
 
 1. the first call runs the body eagerly on a side stream, the warm-up that
    `torch.cuda.graphs` asks for (cuBLAS makes a stream's workspace at its
@@ -22,16 +26,25 @@ No leaf of a returned state aliases a static buffer, so a state held
 across later steps does not change under its holder. A CPU tensor, grad
 enabled or a leaf that is not a tensor runs the body eagerly.
 
+A body that draws from a CUDA generator of its own names it: the graph
+registers the generator's state (`CUDAGraph.register_generator_state`),
+so each replay draws what the eager body would from the generator's state
+at that moment, and advances the state as far, whatever was drawn or
+seeded between replays.
+
 The physics launch inside a graph: `megakernel.capture` records it, and
 before each replay `Captured.before_replay` uploads the model's structure
 tables as an eager launch does and counts the launch in
-`megakernel.launches`. The span `env.graph` (`utils/tracing.py`) covers
-the copy-in, the replay and the copy-out: its calls are the replays.
+`megakernel.launches`. A span (`utils/tracing.py`; `env.graph` for the env
+step, `act.graph` for the draws and the policy) covers the copy-in, the
+replay and the copy-out: its calls are the replays.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -92,6 +105,20 @@ def _by_dtype(tensors) -> List[List[int]]:
     return list(groups.values())
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """No garbage collection inside the block: a CUDA graph collected
+    inside a capture would be destroyed inside it, which CUDA refuses, and
+    the capture would fail."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 @dataclasses.dataclass
 class _Graph:
     graph: torch.cuda.CUDAGraph
@@ -105,22 +132,30 @@ class _Graph:
     n_out: int
     output_spec: tuple
     captured: MK.Captured
-    model: object  # the key holds its id
+    held: tuple  # the model and the generator: the key holds their ids
 
 
 class StepGraphs:
-    """The CUDA graphs of one env's step body, by key (module docstring)."""
+    """The CUDA graphs of one body, by key (module docstring); each replay
+    opens the span `span`. The warm-ups and captures run on a side stream
+    per device, from `streams` when given: graphs that share them share
+    cuBLAS's workspace of each stream (32 MiB on an H100)."""
 
-    def __init__(self):
+    def __init__(self, span: str = "env.graph", streams: Optional[Dict[int, torch.cuda.Stream]] = None):
+        self._span = span
         self._graphs: Dict[tuple, object] = {}  # a _Graph, _WARM or _EAGER
-        self._streams: Dict[int, torch.cuda.Stream] = {}
+        self.streams: Dict[int, torch.cuda.Stream] = {} if streams is None else streams
 
     def __len__(self) -> int:
         """The graphs captured."""
         return sum(isinstance(g, _Graph) for g in self._graphs.values())
 
-    def __call__(self, body: Callable, args: tuple, model):
-        """`body(*args)`: eager, or through the graph of its key."""
+    def __call__(self, body: Callable, args: tuple, model, values: tuple = (),
+                 generator: Optional[torch.Generator] = None):
+        """`body(*args)`: eager, or through the graph of its key, which holds
+        the arguments' spec, the identity of `model` and of `generator` (the
+        CUDA generator the body draws from, if any; the graph keeps both)
+        and `values`."""
         if torch.is_grad_enabled():
             return body(*args)
         leaves: List[torch.Tensor] = []
@@ -128,13 +163,15 @@ class StepGraphs:
             spec = flatten(args, leaves)
         except _Unsupported:
             return body(*args)
-        key = (spec, id(model))
+        key = (spec, id(model), id(generator), values)
         graph = self._graphs.get(key)
         if isinstance(graph, _Graph):
             return self._replay(graph, leaves)
         if graph is _EAGER:
             return body(*args)
         devices = {t.get_device() for t in leaves}
+        if generator is not None and generator.device.type != "cuda":
+            devices.add(-1)  # (a CUDA generator made for "cuda" names no index)
         dev = devices.pop() if len(devices) == 1 else -1
         if dev < 0:
             self._graphs[key] = _EAGER
@@ -142,13 +179,13 @@ class StepGraphs:
         if graph is None:
             self._graphs[key] = _WARM
             return self._warm_up(body, args, dev)
-        graph = self._graphs[key] = self._capture(body, spec, leaves, dev, model)
+        graph = self._graphs[key] = self._capture(body, spec, leaves, dev, model, generator)
         return self._replay(graph, leaves)
 
     def _stream(self, dev: int) -> torch.cuda.Stream:
-        if dev not in self._streams:
-            self._streams[dev] = torch.cuda.Stream(dev)
-        return self._streams[dev]
+        if dev not in self.streams:
+            self.streams[dev] = torch.cuda.Stream(dev)
+        return self.streams[dev]
 
     def _warm_up(self, body: Callable, args: tuple, dev: int):
         stream, current = self._stream(dev), torch.cuda.current_stream(dev)
@@ -158,10 +195,13 @@ class StepGraphs:
         current.wait_stream(stream)
         return out
 
-    def _capture(self, body: Callable, spec, leaves, dev: int, model) -> _Graph:
+    def _capture(self, body: Callable, spec, leaves, dev: int, model,
+                 generator: Optional[torch.Generator]) -> _Graph:
         static = [t.clone(memory_format=torch.contiguous_format) for t in leaves]
         graph = torch.cuda.CUDAGraph()
-        with MK.capture() as captured, torch.cuda.graph(graph, stream=self._stream(dev)):
+        if generator is not None:
+            graph.register_generator_state(generator)
+        with _gc_paused(), MK.capture() as captured, torch.cuda.graph(graph, stream=self._stream(dev)):
             out = body(*unflatten(spec, iter(static)))
             out_leaves: List[torch.Tensor] = []
             output_spec = flatten(out, out_leaves)
@@ -174,11 +214,11 @@ class StepGraphs:
                 refs = [out_leaves[j] for j in idx]
                 outputs.append((_flatten_dense_tensors(refs), idx, refs))
         inputs = [([static[i] for i in idx], idx) for idx in _by_dtype(static)]
-        return _Graph(graph, inputs, outputs, passed, len(out_leaves), output_spec, captured, model)
+        return _Graph(graph, inputs, outputs, passed, len(out_leaves), output_spec, captured,
+                      (model, generator))
 
-    @staticmethod
-    def _replay(g: _Graph, leaves: List[torch.Tensor]):
-        with tracing.span("env.graph"):
+    def _replay(self, g: _Graph, leaves: List[torch.Tensor]):
+        with tracing.span(self._span):
             g.captured.before_replay()
             # inference mode skips the autograd bookkeeping of the copies and
             # of the views; the clones, made outside it, are normal tensors,

@@ -152,11 +152,15 @@ class EvalEnv(TrainingEnv):
 
     On CUDA tensors under `torch.no_grad()` (`ppo.run_eval`), `step`
     replays a CUDA graph of its whole body, one per input signature, kept
-    by this object (`envs/step_graph.py`); `_step` is the body, eager."""
+    by this object (`envs/step_graph.py`); `_step` is the body, eager.
+    `act_graphs` keeps the graphs of `ppo.run_eval`'s draws and policy
+    in front of each step (`ppo.eval_actor`): their key holds this env.
+    Both capture on the same side stream."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._graphs = step_graph.StepGraphs()
+        self.act_graphs = step_graph.StepGraphs("act.graph", streams=self._graphs.streams)
 
     def reset(self, draws) -> State:
         with tracing.span("env.reset"):

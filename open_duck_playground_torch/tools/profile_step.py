@@ -13,17 +13,18 @@ start (CUDA events on the card):
   2. the full `Joystick.step` under zero actions, its step draws taken in
      the loop as the trainer takes them;
   3. the gait oracle's `reference_frame` alone.
-The port adds one control step of `ppo.run_eval` (`ppo.eval_draws`, the
-stochastic policy of fresh networks, `EvalEnv.step` under no grad, so that
-on the card the env step replays its CUDA graph: episodes of 1000 steps,
-nominal model), and the same control step with the env step's body run
-eagerly (`eval_step_eager`: `EvalEnv._step` inside the wrapper's span).
-Each is split into its layers by the program's own spans
-(`utils/tracing.py`): `layers` (the graphed step) and `layers_eager` hold
-the host us per control step of `policy`, `env.draws`, `env.wrapper`,
-`env.graph`, `env.task` and `env.physics` (self times, the first call left
-out; a span that closed in under half the piece's calls, such as the task
-under the graph, which runs only in its warm-up and capture, is left out).
+The port adds one control step of `ppo.run_eval` (`ppo.eval_actor`: the
+step draws and the stochastic policy of fresh networks, then `EvalEnv.step`
+under no grad, so that on the card both replay their CUDA graphs: episodes
+of 1000 steps, nominal model), and the same control step run eagerly
+(`eval_step_eager`: `ppo.eval_draws`, the policy, and `EvalEnv._step`
+inside the wrapper's span). Each is split into its layers by the program's
+own spans (`utils/tracing.py`): `layers` (the graphed step) and
+`layers_eager` hold the host us per control step of `policy`, `env.draws`,
+`act.graph`, `env.wrapper`, `env.graph`, `env.task` and `env.physics`
+(self times, the first call left out; a span that closed in under half the
+piece's calls, such as the task under the graph, which runs only in its
+warm-up and capture, is left out).
 Eager PyTorch has no compiled program to time, so each piece also shows
 its overhead as the CUDA kernel launches per control step, read with
 `torch.profiler` (`benchutil.device_trace`), with its host
@@ -44,8 +45,10 @@ import torch
 
 from open_duck_playground_torch.tools import benchutil
 
-# the program's spans of one control step (`utils/tracing.py`)
-STEP_SPANS = ("policy", "env.draws", "env.wrapper", "env.graph", "env.task", "env.physics")
+# the program's spans of one control step (`utils/tracing.py`), by their
+# names in the record
+STEP_SPANS = {"policy": "policy", "env.draws": "draws", "act.graph": "act_graph", "env.wrapper": "wrapper",
+              "env.graph": "graph", "env.task": "task", "env.physics": "physics"}
 # the two control steps of `run_eval`, graphed and eager, and their layers
 CONTROL_STEPS = {"eval_step": "layers", "eval_step_eager": "layers_eager"}
 
@@ -87,6 +90,7 @@ def profile(argv=None, device="cuda"):
     wstate = wrapped.reset(env.reset_draws(gen, n))
     ts = ppo.init_training_state(wstate.obs, env.action_size, PPOConfig(), gen, device=dev)
     policy = ppo.make_policy((ts.normalizer, ts.net))
+    act_graphed = ppo.eval_actor(wrapped, ts.net, n, False, gen)
     ctrl = m.key_ctrl.expand(n, -1).contiguous()
     act = torch.zeros((n, env.action_size), device=dev)
     cmd = state.info["command"]
@@ -99,8 +103,7 @@ def profile(argv=None, device="cuda"):
 
     def eval_step(s):
         with torch.no_grad():  # as in `ppo.run_eval`
-            noise, draws = ppo.eval_draws(wrapped, n, False, gen)
-            return wrapped.step(s, policy(s.obs, noise)[0], draws)
+            return wrapped.step(s, *act_graphed(s.obs, ts.normalizer))
 
     def eval_step_eager(s):
         with torch.no_grad():
@@ -141,7 +144,7 @@ def profile(argv=None, device="cuda"):
                        "megakernel_launches_per_step": (MK.launches - before) / calls}
     # the control steps' layers: each span's steady self time per call
     for key, layers in CONTROL_STEPS.items():
-        record[layers] = {f"{name.rsplit('.', 1)[-1]}_us": 1e6 * (s["self_s"] - s["first_self_s"]) / (s["calls"] - 1)
+        record[layers] = {f"{STEP_SPANS[name]}_us": 1e6 * (s["self_s"] - s["first_self_s"]) / (s["calls"] - 1)
                           for name, s in spans[key].items() if name in STEP_SPANS and 2 * s["calls"] >= calls}
 
     # one control step of each piece, traced
@@ -156,8 +159,8 @@ def profile(argv=None, device="cuda"):
     if dev.type == "cuda":
         for key, layers in CONTROL_STEPS.items():
             by_span = traces[key]["trace"]["spans"]["spans"]
-            record[layers].update({f"{name.rsplit('.', 1)[-1]}_launches": by_span.get(name, {}).get("kernel_launches", 0)
-                                   for name in STEP_SPANS})
+            record[layers].update({f"{label}_launches": by_span.get(name, {}).get("kernel_launches", 0)
+                                   for name, label in STEP_SPANS.items()})
     record["finite"] = bool(torch.isfinite(outputs["physics"].qpos).all()
                             and torch.isfinite(outputs["env_step"].reward).all()
                             and all(torch.isfinite(outputs[key].reward).all() for key in CONTROL_STEPS))

@@ -460,6 +460,33 @@ def eval_draws(eval_env: EvalEnv, num_envs: int, deterministic: bool, generator:
         return noise, eval_env.step_draws(generator, num_envs)
 
 
+def eval_actor(eval_env: EvalEnv, net: N.PPONetworks, num_envs: int, deterministic: bool,
+               generator: torch.Generator) -> Callable:
+    """`act(obs, normalizer) -> (action, step draws)`: what `run_eval` does
+    before each `eval_env.step`: `eval_draws`, then the policy of
+    (normalizer, net) on the draws' noise, its log-prob included.
+
+    On CUDA tensors under no grad `act` replays a CUDA graph of that body
+    (`eval_env.act_graphs`, span `act.graph`; `envs/step_graph.py`): the
+    obs and the normalizer's tensors are copied in (the trainer makes a new
+    normalizer every training step), the action and the draws cloned out,
+    fresh tensors every step. The key holds what the body reads by address
+    or bakes in and the input does not show: the eval env, the generator,
+    `num_envs`, `deterministic`, `net` and its parameters' storage (an
+    optimizer step or a restore in place shows in the next replay); the
+    device is the input's. The generator is registered with the graph, so a
+    replay draws what the eager body would and advances the generator as
+    far. Else the body runs eagerly."""
+
+    def body(obs, normalizer):
+        noise, step_draws = eval_draws(eval_env, num_envs, deterministic, generator)
+        action, _ = make_policy((normalizer, net), deterministic)(obs, noise)
+        return action, step_draws
+
+    values = (num_envs, deterministic, tuple([p.data_ptr() for p in net.parameters()]))
+    return lambda obs, normalizer: eval_env.act_graphs(body, (obs, normalizer), net, values, generator)
+
+
 def run_eval(eval_env: EvalEnv, variables, num_envs: int, length: int, deterministic: bool,
              generator: Optional[torch.Generator], draws: Optional[EvalDraws] = None
              ) -> Dict[str, float]:
@@ -467,18 +494,24 @@ def run_eval(eval_env: EvalEnv, variables, num_envs: int, length: int, determini
     of `variables`, with `generator`'s random numbers unless `draws` gives
     them. Returns the mean and std episode reward, the mean length, the
     tracking errors as per-step means and every other env metric as an
-    episode sum (ppo.py:423-455 of the JAX package)."""
-    policy = make_policy(variables, deterministic)
+    episode sum (ppo.py:423-455 of the JAX package). With the generator's
+    numbers each step's draws and action come from `eval_actor`, on the
+    card from its graph."""
+    normalizer, net = variables
+    if draws is None:
+        act = eval_actor(eval_env, net, num_envs, deterministic, generator)
+    else:
+        policy = make_policy(variables, deterministic)
     with torch.no_grad():
         state = eval_env.reset(eval_env.env.reset_draws(generator, num_envs) if draws is None
                                else draws.reset)
         for t in range(length):
             if draws is None:
-                noise, step_draws = eval_draws(eval_env, num_envs, deterministic, generator)
+                action, step_draws = act(state.obs, normalizer)
             else:
                 noise = None if deterministic else draws.action_noise[t]
+                action, _ = policy(state.obs, noise)
                 step_draws = draws.env[t]
-            action, _ = policy(state.obs, noise)
             state = eval_env.step(state, action, step_draws)
         em = state.info["eval_metrics"]
         out = {

@@ -29,8 +29,9 @@ The spans of the port, where the work happens:
 
 | span | site | per |
 |---|---|---|
-| `policy` | `ppo.make_policy`'s policy; `ppo.generate_unroll`'s logits, sample and log-prob | control step |
-| `env.draws` | `ppo.eval_draws` (`run_eval`); `ppo.unroll_draws` in `training_step` | control step; training step |
+| `policy` | `ppo.make_policy`'s policy; `ppo.generate_unroll`'s logits, sample and log-prob; in `run_eval` on the card only the warm-up and capture of `act.graph` | control step |
+| `env.draws` | `ppo.eval_draws` (`run_eval`, as `policy`); `ppo.unroll_draws` in `training_step` | control step; training step |
+| `act.graph` | `ppo.eval_actor` replaying its CUDA graph of the draws and the policy (`run_eval` on the card): copy-in, replay, copy-out | replay |
 | `env.wrapper` | `TrainingEnv.step`, `EvalEnv.step`: autoreset, quarantine, episode sums | control step |
 | `env.graph` | `EvalEnv.step` replaying its CUDA graph (`envs/step_graph.py`): copy-in, replay, copy-out | replay |
 | `env.task` | `Joystick.step` (`Standing` inherits it) less the physics; under the graph only its warm-up and capture | control step |

@@ -12,6 +12,11 @@ CPU (the CUDA graph itself: `tests/test_torch_gpu_graph.py`, on the card):
   indexing with their list did, bit for bit;
 - `EvalEnv.step` on CPU tensors runs its body eagerly: no graph is kept
   and the span `env.graph` never opens;
+- `ppo.run_eval` on the CPU runs its draws and policy eagerly (no graph of
+  `ppo.eval_actor`, the span `act.graph` never opens) and draws in its
+  order: the eval numbers and the generator's state are those of the
+  eager loop with every draw taken from a twin generator in that order
+  (reset, then per step the action noise and the step draws);
 - the trees `StepGraphs` keys on flatten and rebuild exactly, and their
   spec changes with a leaf's shape or dtype.
 """
@@ -28,6 +33,8 @@ from open_duck_playground_torch.envs.joystick import Joystick
 from open_duck_playground_torch.envs.standing import Standing
 from open_duck_playground_torch.envs.wrappers import EvalEnv
 from open_duck_playground_torch.models import loader
+from open_duck_playground_torch.train import ppo, running_stats as RS
+from open_duck_playground_torch.train.config import PPOConfig
 from open_duck_playground_torch.utils import tracing
 
 torch.set_num_threads(1)
@@ -149,6 +156,30 @@ def test_eval_step_on_the_cpu_runs_eagerly_and_never_opens_env_graph():
     spans = tracing.snapshot()
     assert "env.graph" not in spans and spans["env.wrapper"]["calls"] == 3 and spans["env.task"]["calls"] == 3
     assert len(eval_env._graphs) == 0
+
+
+@pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "deterministic"])
+def test_run_eval_on_the_cpu_acts_eagerly_and_draws_in_its_order(deterministic):
+    env = Joystick("flat_terrain_backlash", device=CPU)
+    gen = torch.Generator().manual_seed(6)
+    probe = EvalEnv(env, episode_length=1000).reset(env.reset_draws(gen, 2))
+    ts = ppo.init_training_state(probe.obs, env.action_size, PPOConfig(), gen, device=CPU)
+    variables = (RS.update(ts.normalizer, probe.obs), ts.net)
+    eval_env = EvalEnv(env, episode_length=1000)
+    gen.manual_seed(7)
+    tracing.reset()
+    got = ppo.run_eval(eval_env, variables, 3, 4, deterministic, gen)
+    spans = tracing.snapshot()
+    assert "act.graph" not in spans and spans["policy"]["calls"] == spans["env.draws"]["calls"] == 4
+    assert len(eval_env.act_graphs) == 0
+    # the eager loop, its draws from a twin generator in run_eval's order
+    twin = torch.Generator().manual_seed(7)
+    reset = env.reset_draws(twin, 3)
+    steps = [ppo.eval_draws(eval_env, 3, deterministic, twin) for _ in range(4)]
+    noise = None if deterministic else torch.stack([z for z, _ in steps])
+    draws = ppo.EvalDraws(reset=reset, action_noise=noise, env=[d for _, d in steps])
+    assert got == ppo.run_eval(EvalEnv(env, episode_length=1000), variables, 3, 4, deterministic, None, draws)
+    assert torch.equal(gen.get_state(), twin.get_state())
 
 
 def test_step_graphs_run_the_body_eagerly_off_the_card():

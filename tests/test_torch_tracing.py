@@ -169,21 +169,24 @@ def span_metrics():
 
 
 def test_the_benchmark_reads_seven_program_spans():
-    # seven spans, and the share of the env steps the graph replayed
+    # seven spans, the share of the env steps the env step's graph replayed
+    # and the share of the control steps that drew and acted through a graph
     assert sorted(m["name"] for m in span_metrics()) == sorted(
         ["policy_host_ms.eval", "draws_host_ms.eval", "wrapper_host_ms.eval", "task_host_ms.eval",
-         "physics_host_ms.eval", "ppo_init_s.eval", "reset_first_s.eval", "env_graph_share.eval"])
+         "physics_host_ms.eval", "ppo_init_s.eval", "reset_first_s.eval", "env_graph_share.eval",
+         "act_graph_share.eval"])
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in span_metrics()])
 def test_each_span_metric_reads_a_finite_number(clock, metric):
     read = manifest.metric_reader(manifest.BENCH_DIR, metric)
     assert read({}) is None  # no span closed: nothing to read, as in a program without them
-    for name in (*STEP_SPANS, "env.graph", "ppo.init", "env.reset"):
+    for name in (*STEP_SPANS, "env.graph", "act.graph", "ppo.init", "env.reset"):
         for seconds in (3, 1, 1):
             with tracing.span(name):
                 clock.advance(seconds)
     value = read({})
     assert isinstance(value, float) and math.isfinite(value) and value > 0
     kind = metric.split(".")[0]
-    assert value == (3.0 if kind in ("ppo_init_s", "reset_first_s") else 100.0 if kind == "env_graph_share" else 1e3)
+    assert value == {"ppo_init_s": 3.0, "reset_first_s": 3.0, "env_graph_share": 100.0,
+                     "act_graph_share": 50.0}.get(kind, 1e3)  # act.graph as often as env.draws
