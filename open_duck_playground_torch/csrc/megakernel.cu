@@ -22,9 +22,10 @@
 // megakernel.cuh. No tensor cores, TMA or clusters: see megakernel.cuh.
 //
 // Filling the card: a block holds MK_BLOCK_ENVS envs (MK_BLOCK_ENVS *
-// MK_LANES threads) and one copy of the structure tables (8 KB, copied once
-// before the first step, behind the kernel's only block-wide barrier; lanes
-// read different entries at once, which constant memory would serialize).
+// MK_LANES threads) and one copy of the structure tables (8 KB, copied from
+// the model's record once before the first step, behind the kernel's only
+// block-wide barrier; lanes read different entries at once, which constant
+// memory would serialize).
 // 8 envs per block put two blocks, 16 envs, on an SM: shared memory, not
 // the block shape, is the limit. The grid has one block per MK_BLOCK_ENVS
 // envs and the hardware hands an SM its next block as soon as one ends:
@@ -49,8 +50,6 @@
 #define MK_BLOCK_ENVS 8
 #define MK_THREADS (MK_BLOCK_ENVS * MK_LANES)
 static_assert(MK_LANES == 32 || MK_LANES == 16 || MK_LANES == 8, "a warp or an aligned part of one");
-
-__device__ MkModel g_model;
 
 // The lanes of one env: an aligned group of MK_LANES threads of a warp.
 struct MkLanes {
@@ -103,7 +102,7 @@ __global__ void __launch_bounds__(MK_THREADS) mk_kernel(MkArgs a) {
   // the block's copy of the structure tables, then its envs' working sets
   int* tables = reinterpret_cast<int*>(mk_smem);
   MkShared* envs = reinterpret_cast<MkShared*>(tables + MK_MODEL_WORDS);
-  const int* src = reinterpret_cast<const int*>(&g_model);
+  const int* src = reinterpret_cast<const int*>(a.model);
   for (int i = threadIdx.x; i < (int)(sizeof(MkModel) / 4); i += MK_THREADS) tables[i] = src[i];
   __syncthreads();  // the only block-wide barrier, before the first step
   const int slot = threadIdx.x / MK_LANES;
@@ -117,35 +116,29 @@ __global__ void __launch_bounds__(MK_THREADS) mk_kernel(MkArgs a) {
 
 static size_t mk_smem_bytes() { return 4 * MK_MODEL_WORDS + MK_BLOCK_ENVS * sizeof(MkShared); }
 
-// More than 48 KB of dynamic shared memory needs the attribute; the
-// carve-out is asked for in full so that shared memory alone limits the
-// resident blocks.
-static cudaError_t mk_configure() {
-  cudaError_t err = cudaFuncSetAttribute(mk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)mk_smem_bytes());
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(mk_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
 extern "C" {
 
 int mk_model_size() { return (int)sizeof(MkModel); }
 
 int mk_shared_size() { return (int)sizeof(MkShared); }
 
-// Copy the structure tables into device memory (synchronous).
-int mk_set_model(const MkModel* host) {
-  return (int)cudaMemcpyToSymbol(g_model, host, sizeof(MkModel));
+// The kernel's attributes on the current device, constants of the build:
+// more than 48 KB of dynamic shared memory needs the attribute; the
+// carve-out is asked for in full so that shared memory alone limits the
+// resident blocks. Once per device before its first launch.
+int mk_configure() {
+  cudaError_t err = cudaFuncSetAttribute(mk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)mk_smem_bytes());
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(mk_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
 }
 
-// ptrs: MK_NPTR device pointers in MkArgs order. Launches on `stream` and
-// returns the first error of configuring or launching (a refused launch
-// shows in cudaGetLastError()).
-int mk_step(const void* const* ptrs, int batch, int n_substeps, void* stream) {
-  cudaError_t err = mk_configure();
-  if (err != cudaSuccess) return (int)err;
-  MkArgs a = mk_args(ptrs, batch, n_substeps);
+// model: the model's record (one MkModel) in device memory; ptrs: MK_NPTR
+// device pointers in MkArgs order. Launches on `stream` and returns the
+// launch's error (a refused launch shows in cudaGetLastError()).
+int mk_step(const MkModel* model, const void* const* ptrs, int batch, int n_substeps, void* stream) {
+  MkArgs a = mk_args(model, ptrs, batch, n_substeps);
   int grid = (batch + MK_BLOCK_ENVS - 1) / MK_BLOCK_ENVS;
   mk_kernel<<<grid, MK_THREADS, mk_smem_bytes(), (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -155,7 +148,7 @@ int mk_step(const void* const* ptrs, int batch, int n_substeps, void* stream) {
 // resident blocks per SM, SM count, dynamic shared bytes per block, lanes
 // per env, threads per block, bytes of one env's working set.
 int mk_kernel_info(int* out) {
-  cudaError_t err = mk_configure();
+  cudaError_t err = (cudaError_t)mk_configure();
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, mk_kernel);

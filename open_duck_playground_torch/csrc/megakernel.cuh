@@ -62,11 +62,12 @@
 //
 // Model dimensions and the partition's sizes are compile-time constants (-D
 // flags from physics/megakernel.py), so every array has a fixed size. The
-// structure tables are one MkModel; the 8 domain-randomized fields come per
-// env. The body is a template over the lane context and is __host__
-// __device__, so the same text compiles with a host C++ compiler
-// (megakernel_host.cpp, a one-lane test harness). Lanes talk only through
-// MkShared and the context's sync, sum and argmin.
+// structure tables are one MkModel, which a launch passes by pointer in
+// MkArgs; the 8 domain-randomized fields come per env. The body is a
+// template over the lane context and is __host__ __device__, so the same
+// text compiles with a host C++ compiler (megakernel_host.cpp, a one-lane
+// test harness). Lanes talk only through MkShared and the context's sync,
+// sum and argmin.
 #pragma once
 
 #include <math.h>
@@ -127,9 +128,9 @@
 // Structure tables. Only 4-byte fields, so the layout has no padding; the
 // ctypes mirror in physics/megakernel.py:_struct_fields lists the same
 // fields in the same order, and mk_model_size() lets the wrapper check the
-// size. On the card every block keeps a copy in shared memory, not constant
-// memory: lanes read different entries at once, which the constant cache
-// serializes.
+// size. On the card the model's record in device memory is copied by every
+// block into shared memory, not constant memory: lanes read different
+// entries at once, which the constant cache serializes.
 struct MkModel {
   int body_parent[MK_NBODY];
   int body_jntadr[MK_NBODY];
@@ -213,7 +214,8 @@ struct MkModel {
 // Per-env tensors, row-major with the env axis first. Inputs: the state,
 // ctrl and the 8 randomized fields as the TPU wrapper lays them out
 // (qpos0, gainprm[:,0], biasprm[:,0:3], frictionloss, armature, body_mass,
-// body_ipos, floor friction). Outputs: the Data fields of the step.
+// body_ipos, floor friction). Outputs: the Data fields of the step. Last,
+// the structure tables of the model stepped.
 struct MkArgs {
   const float* qpos;      // (B, nq)
   const float* qvel;      // (B, nv)
@@ -243,13 +245,14 @@ struct MkArgs {
   float* o_sensordata;    // (B, nsensordata)
   int batch;
   int n_substeps;
+  const MkModel* model;
 };
 
 // Pointers of one launch, in MkArgs order: 14 inputs, the height table
 // where there is one, 9 outputs.
 #define MK_NPTR (23 + MK_HFIELD)
 
-MK_HD inline MkArgs mk_args(const void* const* p, int batch, int n_substeps) {
+MK_HD inline MkArgs mk_args(const MkModel* model, const void* const* p, int batch, int n_substeps) {
   MkArgs a;
   a.qpos = (const float*)p[0];
   a.qvel = (const float*)p[1];
@@ -280,6 +283,7 @@ MK_HD inline MkArgs mk_args(const void* const* p, int batch, int n_substeps) {
   a.o_sensordata = (float*)o[8];
   a.batch = batch;
   a.n_substeps = n_substeps;
+  a.model = model;
   return a;
 }
 

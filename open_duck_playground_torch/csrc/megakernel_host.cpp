@@ -1,8 +1,8 @@
 // Test harness only, never a path of the port: the megakernel body
 // (megakernel.cuh) compiled by a host C++ compiler and looped over envs, so
 // the CPU tests can hold the kernel's arithmetic against the torch engine on
-// a machine without a card. Same C interface as megakernel.cu, with the
-// model passed by pointer.
+// a machine without a card. Same C interface as megakernel.cu: the launch
+// carries a pointer to the model's record in MkArgs, here in host memory.
 //
 // mk_host_step gives the body one lane (MkOneLane): every strided loop
 // covers its whole range, the reductions are the identity and the env's
@@ -85,16 +85,16 @@ struct ThreadLanes {
 };
 
 template <int NLANES>
-void run_lanes(const MkModel& model, const MkArgs& a) {
+void run_lanes(const MkArgs& a) {
   static MkShared env;  // one env at a time, shared by the lanes
   static Team<NLANES> team;
   pthread_barrier_init(&team.barrier, nullptr, NLANES);
   std::vector<std::thread> lanes;
   for (int l = 0; l < NLANES; l++)
-    lanes.emplace_back([&model, &a, l] {
+    lanes.emplace_back([&a, l] {
       ThreadLanes<NLANES> cx{l, &team};
       for (int e = 0; e < a.batch; e++) {
-        mk_env_step(model, a, e, env, cx);
+        mk_env_step(*a.model, a, e, env, cx);
         cx.sync();  // the next env reuses the working set
       }
     });
@@ -107,10 +107,10 @@ void run_lanes(const MkModel& model, const MkArgs& a) {
 
 namespace {
 
-void step_one_lane(const MkModel& model, const MkArgs& a) {
+void step_one_lane(const MkArgs& a) {
   MkShared env;
   MkOneLane one;
-  for (int e = 0; e < a.batch; e++) mk_env_step(model, a, e, env, one);
+  for (int e = 0; e < a.batch; e++) mk_env_step(*a.model, a, e, env, one);
 }
 
 }  // namespace
@@ -122,14 +122,14 @@ int mk_model_size() { return (int)sizeof(MkModel); }
 int mk_shared_size() { return (int)sizeof(MkShared); }
 
 int mk_host_step(const MkModel* model, const void* const* ptrs, int batch, int n_substeps) {
-  step_one_lane(*model, mk_args(ptrs, batch, n_substeps));
+  step_one_lane(mk_args(model, ptrs, batch, n_substeps));
   return 0;
 }
 
 #ifdef MK_HOST_LANES
 // The same launch on MK_HOST_LANES lanes. Not reentrant.
 int mk_host_step_lanes(const MkModel* model, const void* const* ptrs, int batch, int n_substeps) {
-  run_lanes<MK_HOST_LANES>(*model, mk_args(ptrs, batch, n_substeps));
+  run_lanes<MK_HOST_LANES>(mk_args(model, ptrs, batch, n_substeps));
   return 0;
 }
 #endif
@@ -157,9 +157,9 @@ int main(int argc, char** argv) {
   }
   fclose(in);
 #ifdef MK_HOST_LANES
-  run_lanes<MK_HOST_LANES>(model, mk_args(ptrs, head[0], head[1]));
+  run_lanes<MK_HOST_LANES>(mk_args(&model, ptrs, head[0], head[1]));
 #else
-  step_one_lane(model, mk_args(ptrs, head[0], head[1]));
+  step_one_lane(mk_args(&model, ptrs, head[0], head[1]));
 #endif
   FILE* out = fopen(argv[2], "wb");
   if (!out) return 2;

@@ -32,12 +32,13 @@ so each replay draws what the eager body would from the generator's state
 at that moment, and advances the state as far, whatever was drawn or
 seeded between replays.
 
-The physics launch inside a graph: `megakernel.capture` records it, and
-before each replay `Captured.before_replay` uploads the model's structure
-tables as an eager launch does and counts the launch in
-`megakernel.launches`. A span (`utils/tracing.py`; `env.graph` for the env
-step, `act.graph` for the draws and the policy) covers the copy-in, the
-replay and the copy-out: its calls are the replays.
+The physics launch inside a graph: `megakernel.capture` records it with
+the tensors whose addresses it baked in, the model's record among them
+(made in the warm-up: a launch carries its model by pointer), and each
+replay counts it in `megakernel.launches` (`Captured.count_replay`). A
+span (`utils/tracing.py`; `env.graph` for the env step, `act.graph` for
+the draws and the policy) covers the copy-in, the replay and the
+copy-out: its calls are the replays.
 """
 
 from __future__ import annotations
@@ -219,7 +220,7 @@ class StepGraphs:
 
     def _replay(self, g: _Graph, leaves: List[torch.Tensor]):
         with tracing.span(self._span):
-            g.captured.before_replay()
+            g.captured.count_replay()
             # inference mode skips the autograd bookkeeping of the copies and
             # of the views; the clones, made outside it, are normal tensors,
             # and so are views of them

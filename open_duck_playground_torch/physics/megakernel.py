@@ -8,6 +8,10 @@ in one launch. A plane floor and a heightfield floor (the TPU kernel's
 `-DMK_HFIELD`; the heightfield build gathers from the height table in
 device memory.
 
+A launch passes the kernel its model by pointer, as the host test harness
+takes it: a record per model and device (`_Kernel.record`), made at the
+model's first eager launch there and dropped with the model.
+
 What bounds it on an H100: not HBM (about 2.3 KB in and out per env and
 control step) and not the f32 operations at peak, but the latency of many
 short dependent stages. The kernel gives each env a group of lanes (a warp
@@ -41,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -52,9 +57,7 @@ from open_duck_playground_torch.physics import collision as C
 from open_duck_playground_torch.physics import constraint as CN
 from open_duck_playground_torch.physics import linalg
 from open_duck_playground_torch.physics import structure
-from open_duck_playground_torch.physics.types import (
-    FREE, RANDOMIZED_FIELDS, Data, Model, ModelSpec,
-)
+from open_duck_playground_torch.physics.types import FREE, Data, Model, ModelSpec
 
 CSRC = cuda_build.CSRC
 TPU_KERNEL = "open_duck_playground_tpu/physics/megakernel.py:2178"
@@ -450,6 +453,12 @@ def model_struct(m: Model, dense: bool = False):
     return st
 
 
+def model_record(m: Model, dense: bool = False, device=None) -> torch.Tensor:
+    """The MkModel bytes of `m` (`model_struct`) as a uint8 tensor on
+    `device`, the record whose address a launch passes the kernel."""
+    return torch.tensor(np.frombuffer(model_struct(m, dense), dtype=np.uint8), device=device)
+
+
 # ------------------------------------------- the factorization's plain version
 def block_arrow_solve(A: torch.Tensor, b: torch.Tensor, part: Partition) -> torch.Tensor:
     """`A^{-1} b` for symmetric positive definite `A` (..., nv, nv) whose
@@ -573,7 +582,7 @@ def build_flags(dims: Dict[str, int]) -> List[str]:
 
 class _Kernel:
     """One built library: its ctypes handle, path, build time and ptxas
-    report."""
+    report, and the records of the models it has stepped."""
 
     def __init__(self, dims: Dict[str, int], dense: bool = False, source: str = SOURCE):
         self.dims, self.dense = dims, dense
@@ -583,46 +592,41 @@ class _Kernel:
         lib = built.lib
         lib.mk_model_size.restype = ctypes.c_int
         lib.mk_shared_size.restype = ctypes.c_int
-        lib.mk_set_model.argtypes = [ctypes.c_void_p]
-        lib.mk_set_model.restype = ctypes.c_int
-        lib.mk_step.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.mk_configure.restype = ctypes.c_int
+        lib.mk_step.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.mk_step.restype = ctypes.c_int
         lib.mk_kernel_info.argtypes = [ctypes.c_void_p]
         lib.mk_kernel_info.restype = ctypes.c_int
         self.lib = lib
-        self.struct_type = model_struct_type(dims)
-        if lib.mk_model_size() != ctypes.sizeof(self.struct_type):
+        if lib.mk_model_size() != ctypes.sizeof(model_struct_type(dims)):
             raise RuntimeError("MkModel layout differs between megakernel.cuh and the wrapper")
-        # per device index: the model whose structure is in that device's
-        # memory (its key, and the last model object that had that key), and
-        # its height table (None on a plane)
-        self._uploaded: Dict[int, Tuple] = {}
-        self._last: Dict[int, Model] = {}
-        self._hfield: Dict[int, Optional[torch.Tensor]] = {}
+        self._records: Dict[Tuple[int, int], Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
+        self._configured = set()  # device indices
 
-    def upload(self, m: Model) -> Optional[torch.Tensor]:
-        """Put the model's structure tables in device memory of the
-        current device when they are not there yet (`model_tables` checks
-        that the kernel supports the model), and make the height table of a
-        heightfield model, once per model. Domain randomization replaces
-        only the per-env fields, so a randomized model keeps the upload.
-        Returns the height table (None on a plane)."""
-        dev = torch.cuda.current_device()
-        if self._last.get(dev) is m:  # a frozen model: the same object, the same key
-            return self._hfield[dev]
-        key = (m.spec,) + tuple(
-            getattr(m, f) for f in m.__dataclass_fields__ if f != "spec" and f not in RANDOMIZED_FIELDS
-        )
-        done = self._uploaded.get(dev, ())
-        if not (len(key) == len(done) and all(a is b for a, b in zip(key, done))):
-            st = model_struct(m, self.dense)
-            err = self.lib.mk_set_model(ctypes.byref(st))
-            if err:
-                raise RuntimeError(f"mk_set_model failed: CUDA error {err}")
-            self._uploaded[dev] = key
-            self._hfield[dev] = hfield_table(m) if m.spec.floor_is_hfield else None
-        self._last[dev] = m
-        return self._hfield[dev]
+    def record(self, m: Model, dev: torch.device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The record of `m` on the CUDA device `dev` and its height table
+        (None on a plane), by the model's identity. Domain randomization
+        changes only the per-env inputs, so a randomized model has one
+        record too."""
+        key = (id(m), dev.index)
+        rec = self._records.get(key)
+        if rec is not None:
+            return rec
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a model's kernel record is made at its first eager launch on a device, not inside "
+                               "a CUDA graph capture: run the step once eagerly before capturing it")
+        with torch.cuda.device(dev):
+            if dev.index not in self._configured:
+                err = self.lib.mk_configure()
+                if err:
+                    raise RuntimeError(f"mk_configure failed: CUDA error {err}")
+                self._configured.add(dev.index)
+            table = hfield_table(m) if m.spec.floor_is_hfield else None
+            # a blocking copy after the table's work: both are on the card
+            # for any stream's launch
+            rec = self._records[key] = (model_record(m, self.dense, dev), table)
+        weakref.finalize(m, self._records.pop, key, None)
+        return rec
 
     def info(self) -> Dict[str, int]:
         """Local memory, registers, shared memory and occupancy of the
@@ -656,21 +660,18 @@ def kernel(spec: ModelSpec, dense: bool = False) -> _Kernel:
 
 class Captured:
     """The kernel launches made while a CUDA graph was captured (`capture`):
-    for each, the device, the built kernel, the model and every tensor
-    whose device address the launch baked into the graph. The graph's
-    memory pool does not see the pointers ctypes passes, so the holder of
-    the graph keeps this object with it."""
+    for each, the built kernel, the model and every tensor whose device
+    address the launch baked into the graph, the model's record included.
+    The graph's memory pool does not see the pointers ctypes passes, so the
+    holder of the graph keeps this object with it."""
 
     def __init__(self):
-        self.launches: List[Tuple[torch.device, _Kernel, Model, List[torch.Tensor]]] = []
+        self.launches: List[Tuple[_Kernel, Model, List[torch.Tensor]]] = []
 
-    def before_replay(self) -> None:
-        """What an eager launch does on the host, before each replay: the
-        model's structure tables put in device memory (another model may
-        have been uploaded since the capture), and the launch counted."""
-        for dev, k, m, _ in self.launches:
-            with torch.cuda.device(dev):
-                k.upload(m)
+    def count_replay(self) -> None:
+        """Count the captured launches once, as a replay of the graph runs
+        them."""
+        for k, m, _ in self.launches:
             _count(k, m)
 
 
@@ -706,16 +707,16 @@ def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int,
     if not d.qpos.is_cuda:
         raise TypeError(f"the CUDA kernel takes CUDA tensors, got qpos on {d.qpos.device}")
     k = kernel(m.spec, dense)
-    stream = torch.cuda.current_stream(d.qpos.device).cuda_stream
-    with torch.cuda.device(d.qpos.device):
-        hfield = k.upload(m)
-        inputs, outputs = kernel_tensors(m, d, ctrl, n_substeps, hfield)
-        ptrs = pointer_array(inputs + outputs)
-        err = k.lib.mk_step(ptrs, d.qpos.shape[0], n_substeps, stream)
+    record, hfield = k.record(m, d.qpos.device)
+    inputs, outputs = kernel_tensors(m, d, ctrl, n_substeps, hfield)
+    # on the current stream of the tensors' device, which must be the
+    # current device (a launch on another device's stream is refused)
+    err = k.lib.mk_step(record.data_ptr(), pointer_array(inputs + outputs), d.qpos.shape[0], n_substeps,
+                        torch.cuda.current_stream(d.qpos.device).cuda_stream)
     if err:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     if _capturing is not None:
-        _capturing.launches.append((d.qpos.device, k, m, inputs + outputs))
+        _capturing.launches.append((k, m, [record] + inputs + outputs))
     else:
         _count(k, m)
     return data_from_outputs(d, ctrl, outputs)

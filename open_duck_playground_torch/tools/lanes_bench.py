@@ -60,8 +60,9 @@ def main(argv=None) -> int:
         kernels[lanes] = MK._Kernel(MK.kernel_dims(model.spec), source=str(copy))
 
     def step(k, m, d, ctrl, n):
-        ins, outs = MK.kernel_tensors(m, d, ctrl, n, k.upload(m))
-        err = k.lib.mk_step(MK.pointer_array(ins + outs), d.qpos.shape[0], n,
+        record, hfield = k.record(m, d.qpos.device)
+        ins, outs = MK.kernel_tensors(m, d, ctrl, n, hfield)
+        err = k.lib.mk_step(record.data_ptr(), MK.pointer_array(ins + outs), d.qpos.shape[0], n,
                             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"megakernel launch failed: CUDA error {err}")

@@ -16,7 +16,10 @@ This file imports no JAX package module:
   in the warm-up and the capture;
 - a replayed step makes no host synchronization;
 - a second batch size captures a second graph, and the first one still
-  replays.
+  replays;
+- two models of one kernel build, one launched eagerly between the other's
+  capture and its replay, each step their own model (a launch carries its
+  model's record by pointer), and no record is made inside a capture.
 """
 
 import pytest
@@ -162,3 +165,48 @@ def test_a_second_batch_size_captures_a_second_graph(cuda):
         assert len(ep.env._graphs) == 2 and MK.launches == before + 1
         assert_same(graphed, ep.env._step(state, action, draws), "the first graph after the second")
     assert state_small.reward.shape == (64,)
+
+
+@pytest.mark.parametrize("cls, task", [TASKS[0], TASKS[2]], ids=[IDS[0], IDS[2]])
+def test_two_models_of_one_build_each_step_their_own(cuda, cls, task):
+    """Model B is the env's model A with one body offset moved (a structure
+    table, not a randomized field). B launched eagerly between the capture
+    of A's step and its replay: the replay is A's eager step bit for bit
+    and counts one launch, and B's launch is the one it made before A's
+    graph existed, bit for bit, and not A's."""
+    ep = Episodes(cls, task, cuda)
+    model_a = ep.env._model
+    body_pos = model_a.body_pos.clone()
+    body_pos[2, 2] += 1e-3
+    model_b = model_a.replace(body_pos=body_pos)
+    kernel = MK.kernel(model_a.spec)
+    assert MK.kernel(model_b.spec) is kernel
+    state = ep.reset()
+    d, n = state.data, ep.env.env.n_substeps
+    with torch.no_grad():
+        b_first = MK.megakernel_step(model_b, d, d.ctrl, n)
+        for _ in range(2):  # warm-up, capture and its replay
+            state = ep.env.step(state, *ep.inputs())
+        b = MK.megakernel_step(model_b, d, d.ctrl, n)
+        action, draws = ep.inputs()
+        before = (MK.launches, kernel.launches)
+        graphed = ep.env.step(state, action, draws)
+        assert (MK.launches - before[0], kernel.launches - before[1]) == (1, 1)
+        eager = ep.env._step(state, action, draws)
+        a = MK.megakernel_step(model_a, d, d.ctrl, n)
+    assert len(ep.env._graphs) == 1
+    assert_same(graphed, eager, f"{task}: A's replay after B's launch")
+    assert_same(b, b_first, f"{task}: B after A's graph")
+    assert not torch.equal(a.qpos, b.qpos)
+
+
+def test_no_record_is_made_inside_a_capture(cuda):
+    ep = Episodes(Joystick, "flat_terrain_backlash", cuda)
+    d, n = ep.reset().data, ep.env.env.n_substeps
+    fresh = ep.env._model.replace(body_pos=ep.env._model.body_pos.clone())
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad():
+        MK.megakernel_step(ep.env._model, d, d.ctrl, n)  # the build, loaded and configured
+        with pytest.raises(RuntimeError, match="first eager launch"):
+            with torch.cuda.graph(graph):
+                MK.megakernel_step(fresh, d, d.ctrl, n)

@@ -242,8 +242,12 @@ def host_kernel(models32, tmp_path_factory):
     return build_host_kernel(models32[1].spec, tmp_path_factory.mktemp("mk"))
 
 
-@pytest.mark.parametrize("dr", [False, True], ids=["nominal", "randomized"])
-def test_kernel_arithmetic_matches_step_reference(models32, host_kernel, dr):
+@pytest.mark.parametrize("dr, record", [(False, False), (True, False), (False, True), (True, True)],
+                         ids=["nominal", "randomized", "nominal-record", "randomized-record"])
+def test_kernel_arithmetic_matches_step_reference(models32, host_kernel, dr, record):
+    """`record`: the model passed as the card's launch passes it, the bytes
+    of its record (`model_record`, here on the CPU) by address; the outputs
+    equal those of the ctypes struct by reference bit for bit."""
     from open_duck_playground_torch.envs.randomize import DRDraws, domain_randomize
 
     _, tm, kq, kc = models32
@@ -252,12 +256,17 @@ def test_kernel_arithmetic_matches_step_reference(models32, host_kernel, dr):
     qpos, qvel, ctrl = (torch.as_tensor(x) for x in _inputs(6, batch, np.float32, kq, kc, 0.0))
     d0 = TF.init(m, qpos, qvel, ctrl)
     ins, outs = MK.kernel_tensors(m, d0, ctrl, 10)
-    st = MK.model_struct(m)
-    assert host_kernel.mk_host_step(ctypes.byref(st), MK.pointer_array(ins + outs), batch, 10) == 0
+    st, rec = MK.model_struct(m), MK.model_record(m)
+    model = rec.data_ptr() if record else ctypes.byref(st)
+    assert host_kernel.mk_host_step(model, MK.pointer_array(ins + outs), batch, 10) == 0
     got = MK.data_from_outputs(d0, ctrl, outs)
     want = TF.step_reference(m, d0, ctrl, 10)
     _assert_gates(got, want, "kernel arithmetic vs step_reference")
     np.testing.assert_array_equal(got.qacc_warmstart.numpy(), got.qacc.numpy())
+    if record:
+        by_struct = host_step(host_kernel, m, d0, ctrl, 10)
+        for name, t in got.fields():
+            assert torch.equal(t.view(torch.int32), getattr(by_struct, name).view(torch.int32)), name
 
 
 def test_kernel_arithmetic_matches_every_substep(models32, host_kernel):
