@@ -21,6 +21,14 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      +-3 m of rough terrain and must see active contacts on tilted
      triangles; the degenerate partition runs the same check at 1024 envs,
      and the plane build at the evaluator's shape (128 envs, nominal model);
+  3b. task_kernels: the joystick task's two kernels (tk_pre, tk_post) at
+     the eval's and the rollout's batch (128 and 8192 envs): one fused step
+     against the eager body from the same state (physics state, integer
+     and bool leaves bit for bit, floats within tests/task_kernel_check.py's
+     ULPS of each column's
+     scale), their device ms (a CUDA graph of the two, replayed under CUDA
+     events), the eager body's ms less its physics launch, the bytes-bound
+     ms; their launches per control step are phase profile's;
   4. rollout: the training rollout (TrainingEnv + Joystick on
      flat_terrain_backlash, the 128x4 policy in the loop), 8192 envs x 5
      control steps, every physics step through the plane kernel;
@@ -108,7 +116,8 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      (PERF.md, "Training outcome on the card"); the line prints both
      readings and the bar. A trainer that runs but no longer learns (a
      broken optimizer, reward or normalizer) fails here. The run's own
-     `metrics.jsonl` must log the kernel launches counted here.
+     `metrics.jsonl` must log the kernel launches counted here, and every
+     env step of the run must be a fused task step (`task_kernel`).
 Then the kernel table, the nvidia-smi line, and `{"ok": true, ...}` last.
 Exits non-zero, printing no result, without a CUDA card or when a phase
 fails. Needs no network; the kernel builds count against the run.
@@ -141,6 +150,12 @@ BENCH_PHYSICS_BUILDS = {"flat_terrain_backlash": "megakernel_step", "flat_terrai
                         "rough_terrain_backlash": "megakernel_step_hfield",
                         "flat_terrain_no_head": "megakernel_step_flat_terrain_no_head"}
 MESH_TOLERANCE = 1e-6
+# task: the task kernels at the eval's and the rollout's batch; a fused
+# step's observations, rewards and metrics within tests/task_kernel_check.py's
+# ULPS of each column's largest magnitude of the eager step's (sums over a
+# row in another order than PyTorch's reductions), the physics state and
+# every integer and bool leaf bit for bit
+TASK_ENVS = (128, 8192)
 # profile: the profiling tools through their main(argv). profile_step at
 # 4096 envs, cut from the JAX tool's 500 chained steps to 50 (3 timed runs);
 # profile_train_step at the full config, its eval cut from 1000 control
@@ -278,10 +293,12 @@ def active_rows(m, d):
 
 def load_modules():
     """The port's modules, imported after the card is known to be there."""
+    import importlib.util
     import types
 
     from open_duck_playground_torch.cli import runner
-    from open_duck_playground_torch.envs import joystick, randomize, standing, wrappers
+    from open_duck_playground_torch.envs import (joystick, randomize, standing, step_graph, task_kernel,
+                                                 wrappers)
     from open_duck_playground_torch.export import onnx_export, onnx_runtime, onnx_validate
     from open_duck_playground_torch.models import loader
     from open_duck_playground_torch.physics import collision, forward, kinematics, megakernel
@@ -291,9 +308,16 @@ def load_modules():
                                                   profile_step, profile_train_step)
     from open_duck_playground_torch.train import checkpoint, config, networks, ppo, running_stats
 
+    # the task kernels' comparison with the eager step, shared with their tests
+    spec = importlib.util.spec_from_file_location(
+        "task_kernel_check", pathlib.Path(__file__).resolve().parent / "tests" / "task_kernel_check.py")
+    task_kernel_check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(task_kernel_check)
+
     return types.SimpleNamespace(
-        J=joystick, R=randomize, S=standing, W=wrappers, loader=loader, C=collision, F=forward,
-        K=kinematics, MK=megakernel, IB=issue_bench, cfg=config, N=networks, ppo=ppo,
+        J=joystick, R=randomize, S=standing, SG=step_graph, TK=task_kernel, TKC=task_kernel_check, W=wrappers,
+        loader=loader,
+        C=collision, F=forward, K=kinematics, MK=megakernel, IB=issue_bench, cfg=config, N=networks, ppo=ppo,
         RS=running_stats, cli=runner, CKPT=checkpoint, onnx_export=onnx_export,
         onnx_runtime=onnx_runtime, onnx_validate=onnx_validate, M=mesh, dryrun=dryrun,
         bench_rollout=bench_rollout, bench_physics=bench_physics, bench_sustained=bench_ppo_sustained,
@@ -485,6 +509,85 @@ def kernel_phase(P, name, model, gen, replaces, timing_reps, dense=False, n_envs
         "active_contacts_per_env": active_contacts,
         "active_limits_per_env": active_limits,
     }
+
+
+def task_bytes(P, d, nmetrics: int) -> int:
+    """Bytes the two task launches read and write per env, each counted
+    once: the pre launch's inputs (the gait frame it gathers among them)
+    and outputs, and the post launch's, of the physics outputs only the
+    entries it reads (the feet's heights, the IMU's frame, 19 sensor
+    values)."""
+    U, V, Q, IH, F2 = d["NU"], d["NV"], d["NQ"], d["IHIST"], d["NFOOT"]
+    nref = d["GDIM"] if d["IMITATION"] else 0
+    nstate, npriv = P.TK.library(d).obs_sizes
+    pre = 4 * (U + V + 1 + 7 + d["AHIST"] * U + 2 + U + 2 + nref) + 8 + 4 * (
+        1 + 2 * d["IMITATION"] * d["OBS_PHASE"] + nref + d["AHIST"] * U + 2 + V + U)
+    post_in = 4 * (Q + V + F2 + 9 + U + F2 * d["KPTS"] + 19 + U + 7 + 3 * U + U + 1 + 2 * d["OBS_PHASE"] + nref
+                   + 2 * F2 + 2 + 3 * IH + 9 + 2 * U + 7)
+    post_out = 4 * (nstate + npriv + 2 + 2 * F2 + 3 * IH + 2 + 7 + nmetrics) + F2
+    return pre + post_in + post_out
+
+
+def task_phase(P, gen, smi) -> dict:
+    """The task kernels (row 3) at the eval's and the rollout's batch: one
+    fused step against the eager body from the same state, the kernels'
+    device ms (a CUDA graph of the fused step with its physics launch
+    stubbed by the launch's own outputs, so that the graph holds the two
+    kernels alone, replayed under CUDA events: no profiler here, whose
+    sessions early in the process cost phase profile its device events),
+    the eager body's ms less its physics launch (`plain_ms`) and the
+    bytes-bound ms; returns the row."""
+    dev = gen.device
+    TK, F, TKC = P.TK, P.F, P.TKC
+    per_batch, failures = {}, []
+    for n in TASK_ENVS:
+        env = P.J.Joystick(CLI_TASK, device=dev)
+        state = env.reset(env.reset_draws(gen, n))
+        action = 3.0 * torch.rand((n, env.action_size), generator=gen, device=dev) - 1.5
+        draws = env.step_draws(gen, n)
+        step = lambda: env.step(state, action, draws)
+        with torch.no_grad():
+            fused = step()
+            with TKC.eager(env):
+                slow = step()
+            physics_same = not TKC.unequal_bits(fused.data, slow.data)
+            ints_same = all(dtype.is_floating_point for _, dtype, _ in TKC.mismatches(fused, slow))
+            ulps = TKC.worst_ulps(fused, slow)
+            physics = F.step
+            try:  # the two kernels alone: the physics launch's outputs stand in for it
+                F.step = lambda m, d, ctrl, k: fused.data.replace(ctrl=ctrl)
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    step()
+                torch.cuda.current_stream(dev).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with P.MK.capture(), torch.cuda.graph(graph):
+                    step()
+                ms = cuda_ms(graph.replay, 200)
+            finally:
+                F.step = physics
+            with TKC.eager(env):
+                step_ms = cuda_ms(step, 10)
+            physics_ms = cuda_ms(lambda: F.step(env.model, state.data, state.info["motor_targets"],
+                                                env.n_substeps), 10)
+        nbytes = n * task_bytes(P, TK.kernel_dims(env), len(env._metric_keys))
+        per_batch[n] = {"envs": n, "ms": ms, "plain_ms": step_ms - physics_ms, "eager_step_ms": step_ms,
+                        "physics_ms": physics_ms, "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                        "physics_same": physics_same, "ints_same": ints_same, "max_ulps": ulps}
+        if not (physics_same and ints_same and ulps <= TKC.ULPS):
+            failures.append(n)
+    emit({"phase": "task_kernels", "batches": list(per_batch.values()), "ulps_gate": TKC.ULPS,
+          "ms_is": "a replay of a CUDA graph of the two kernels", "ok": not failures, "card": smi})
+    if failures:
+        raise SystemExit(f"the task kernels disagree with the eager step at {failures} envs")
+    first, last = (per_batch[n] for n in TASK_ENVS)
+    return {"name": "task_step", "route": "cuda", "source": "open_duck_playground_torch/csrc/task_step.cu",
+            "replaces": TK.TPU_KERNEL,
+            "envs": list(TASK_ENVS), "ms": [first["ms"], last["ms"]], "plain_ms": [first["plain_ms"], last["plain_ms"]],
+            "bound_ms": [first["bound_ms"], last["bound_ms"]], "bound_by": "bytes",
+            "max_ulps": max(first["max_ulps"], last["max_ulps"]), "library_ms": None,
+            "library_note": "no single PyTorch call computes a task step"}
 
 
 def rollout_phase(P, gen, smi, steps: int) -> int:
@@ -1392,8 +1495,9 @@ def mesh_phase(P, smi, spec) -> int:
 def profile_phase(P, smi, specs, rows) -> int:
     """The profiling tools through their `main(argv)`, each printing its
     lines as it comes, with their gates; each megakernel row of `rows`
-    (by build name) gets its census. Returns the plane kernel's launches
-    over the tools' runs."""
+    (by build name) gets its census, and the task kernels' row
+    (`task_step`) the launches of `env.task` in the eager body's traced
+    control step. Returns the plane kernel's launches over the tools' runs."""
     t_phase = time.perf_counter()
     failures, runs = [], []
 
@@ -1432,13 +1536,15 @@ def profile_phase(P, smi, specs, rows) -> int:
         if not in_spans >= 0.95:
             failures.append(f"profile_step: {in_spans} of {key}'s launches inside the program's spans")
     # the graphed step launches the env step from one span and the draws and
-    # the policy from another, the eager body from its layers
+    # the policy from another, the eager body from its layers (the task: its
+    # two kernels)
     graphed, eager = r["layers"], r["layers_eager"]
     if not (graphed["graph_launches"] > 0 and graphed["task_launches"] == graphed["physics_launches"] == 0
             and graphed["act_graph_launches"] > 0 and graphed["policy_launches"] == graphed["draws_launches"] == 0
-            and eager["task_launches"] > 0 and eager["physics_launches"] > 0 and eager["graph_launches"] == 0
+            and 0 < eager["task_launches"] <= 3 and eager["physics_launches"] > 0 and eager["graph_launches"] == 0
             and eager["policy_launches"] > 0 and eager["draws_launches"] > 0 and eager["act_graph_launches"] == 0):
         failures.append(f"profile_step: launches by span, graphed {graphed}, eager {eager}")
+    rows["task_step"]["launches"] = eager["task_launches"]
 
     cfg = P.cfg.PPOConfig()
     r, got = call("profile_train_step", P.profile_train_step,
@@ -1486,16 +1592,18 @@ def profile_phase(P, smi, specs, rows) -> int:
     return sum(run["launches"].get("megakernel_step", 0) for run in runs)
 
 
-def learn_phase(P, smi, spec) -> int:
+def learn_phase(P, smi, spec) -> tuple:
     """The learning gate: a short training run through the CLI at the full
     PPO config must raise the eval reward past its bars. Returns the plane
-    kernel's launches over the run."""
+    kernel's launches over the run and the fused task steps
+    (`task_kernel.launches`, two kernel launches each)."""
     cfg = P.cfg.PPOConfig()
     evals, eval_metrics = [], []
     with tempfile.TemporaryDirectory() as tmp, \
             wrapped(P.ppo, "run_eval", timed(evals, lambda a, r: eval_metrics.append(r))):
         torch.cuda.synchronize()
         P.MK.reset_launches()
+        P.TK.reset_counts()
         t0 = time.perf_counter()
         P.cli.main(["--env", "joystick", "--task", CLI_TASK, "--seed", "0", "-o", str(pathlib.Path(tmp) / "run"),
                     "--num_timesteps", str(LEARN_STEPS), "--config_override", "num_evals=2"])
@@ -1503,6 +1611,7 @@ def learn_phase(P, smi, spec) -> int:
         seconds = time.perf_counter() - t0
         launches, kernel_launches = P.MK.launches, P.MK.kernel(spec).launches
         launches_hfield = P.MK.launches_hfield
+        task_steps = (P.TK.launches, P.TK.eager_steps)
         logged = [json.loads(line)["kernel_launches"]
                   for line in (pathlib.Path(tmp) / "run" / "metrics.jsonl").read_text().splitlines()]
     eval_steps = cfg.episode_length // cfg.action_repeat
@@ -1516,6 +1625,8 @@ def learn_phase(P, smi, spec) -> int:
         failures.append(f"eval reward {rewards[0]} -> {rewards[1]}: want x{LEARN_GAIN} and >= {LEARN_BAR}")
     if launches != want_launches or kernel_launches != launches or launches_hfield != 0:
         failures.append(f"{launches} launches ({kernel_launches} of the {CLI_TASK} build), want {want_launches}")
+    if task_steps != (launches, 0):  # every env step of the run through the task kernels
+        failures.append(f"task steps (fused, eager) {task_steps}, want ({launches}, 0)")
     want_logged = [eval_steps * cfg.action_repeat, launches]
     if logged != want_logged:
         failures.append(f"metrics.jsonl logs {logged} kernel launches, want {want_logged}")
@@ -1525,10 +1636,11 @@ def learn_phase(P, smi, spec) -> int:
           "gain": rewards[1] / rewards[0] if len(rewards) == 2 else None, "gain_min": LEARN_GAIN,
           "bar": LEARN_BAR, "seconds": seconds, "seconds_per_eval": evals,
           "kernel_launches": launches, "expected_launches": want_launches, "logged_launches": logged,
+          "task_steps_fused_eager": task_steps,
           "ok": not failures, "card": smi})
     if failures:
         raise SystemExit(f"learn failed: {failures}")
-    return launches
+    return launches, task_steps[0]
 
 
 def main() -> int:
@@ -1573,6 +1685,7 @@ def main() -> int:
                            n_envs=P.cfg.PPOConfig().num_eval_envs, randomize=False)
     row_flat["at_eval_shape"] = {k: at_eval[k] for k in ("envs", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                          "edge_env_substeps", "qpos_p90", "qvel_p90")}
+    row_task = task_phase(P, gen, smi)
     row_flat["launches"] = rollout_phase(P, gen, smi, steps=5)
     row_probe = probe_phase(P, gen, smi)
     row_hfield["launches"] = ppo_phase(P, gen, smi)
@@ -1589,15 +1702,17 @@ def main() -> int:
         P, smi, {"megakernel_step": flat.spec, "megakernel_step_flat_terrain": flat_nb.spec,
                  "megakernel_step_hfield": rough.spec, "megakernel_step_flat_terrain_no_head": no_head.spec},
         {"megakernel_step": row_flat, "megakernel_step_flat_terrain": row_nb, "megakernel_step_hfield": row_hfield,
-         "megakernel_step_dense": row_dense, "megakernel_step_flat_terrain_no_head": row_nh})
+         "megakernel_step_dense": row_dense, "megakernel_step_flat_terrain_no_head": row_nh,
+         "task_step": row_task})
     for row in (row_flat, row_nb, row_hfield, row_nh):
         row["launches_bench"] = bench[row["name"]]
-    row_flat["launches_learn"] = learn_phase(P, smi, flat.spec)
+    row_flat["launches_learn"], row_task["fused_steps_learn"] = learn_phase(P, smi, flat.spec)
+    row_task["launches_learn"] = 2 * row_task["fused_steps_learn"]  # tk_pre and tk_post per fused step
 
     for row, label in ((row_flat, "1"), (row_nb, "1f"), (row_hfield, "1h"), (row_dense, "1d"),
-                       (row_nh, "1n"), (row_probe, "2")):
+                       (row_nh, "1n"), (row_probe, "2"), (row_task, "3")):
         row["row"] = label
-    emit({"kernels": [row_flat, row_nb, row_hfield, row_dense, row_nh, row_probe],
+    emit({"kernels": [row_flat, row_nb, row_hfield, row_dense, row_nh, row_probe, row_task],
           "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -15,8 +15,12 @@ observation (`del noisy_gravity`).
 
 The class flags (`use_imitation`, `use_motor_speed_limits`,
 `obs_has_motor_targets`, `obs_has_imitation_phase`) are the JAX class's;
-`envs/standing.py` turns them off. The robot has 14 actuators (legs 0:5 and
-9:14, head 5:9) or, on `flat_terrain_no_head`, 10 (legs only): the head's
+`envs/standing.py` turns them off. `task_kernel` (the port's) says that the
+class's step on CUDA tensors runs as two CUDA kernels around the physics
+launch (`envs/task_kernel.py`); the body of `step` is their plain version,
+the path of CPU tensors, and `Standing`'s, which turns the flag off. The
+robot has 14 actuators (legs 0:5 and 9:14, head 5:9) or, on
+`flat_terrain_no_head`, 10 (legs only): the head's
 metric and `head_direct_targets` exist only on the first, the gait
 retarget (`_imitation_ref_offset`) only on the second.
 
@@ -36,7 +40,7 @@ import math
 
 import torch
 
-from open_duck_playground_torch.envs import duck_base, imitation, rewards as R
+from open_duck_playground_torch.envs import duck_base, imitation, rewards as R, task_kernel
 from open_duck_playground_torch.envs.duck_base import DuckEnv
 from open_duck_playground_torch.envs.env_types import State
 from open_duck_playground_torch.envs.gait_oracle import GaitOracle
@@ -234,6 +238,9 @@ class Joystick(DuckEnv):
     use_motor_speed_limits = True
     obs_has_motor_targets = True
     obs_has_imitation_phase = True
+    # on CUDA tensors the step runs as two CUDA kernels around the physics
+    # launch (`envs/task_kernel.py`); a task whose step differs turns it off
+    task_kernel = True
 
     def __init__(self, task: str = "flat_terrain", config=None,
                  config_overrides: Optional[Mapping[str, Any]] = None, device="cuda"):
@@ -402,6 +409,10 @@ class Joystick(DuckEnv):
     def step(self, state: State, action: torch.Tensor, draws: StepDraws,
              model: Optional[Model] = None) -> State:
         with tracing.span("env.task"):
+            if state.data.qvel.is_cuda:
+                if self.task_kernel:
+                    return task_kernel.step(self, state, action, draws, model)
+                task_kernel.count_eager_step()
             model = model if model is not None else self._model
             cfg = self._config
             action = action.to(torch.float32)

@@ -76,6 +76,7 @@ class Standing(Joystick):
     use_motor_speed_limits = False
     obs_has_motor_targets = False
     obs_has_imitation_phase = False
+    task_kernel = False  # its rewards and observation are its own: the eager step
 
     @staticmethod
     def default_config():

@@ -1,8 +1,9 @@
 """CUDA graphs of the evaluator's control step.
 
 `EvalEnv.step` on CUDA tensors under `torch.no_grad()` replays its whole
-body (the wrapper, the task and the physics launch, ~385 kernels) as one
-CUDA graph instead of launching it kernel by kernel from Python; in front
+body (the wrapper, the task's two kernels and the physics launch, ~150
+kernels) as one CUDA graph instead of launching it kernel by kernel from
+Python; in front
 of it `ppo.run_eval` replays a second graph, of the step's random draws
 and the policy (`ppo.eval_actor`, ~90 kernels). `StepGraphs` keys the
 graphs on what the input shows: the structure of the arguments (for the
@@ -35,7 +36,8 @@ seeded between replays.
 The physics launch inside a graph: `megakernel.capture` records it with
 the tensors whose addresses it baked in, the model's record among them
 (made in the warm-up: a launch carries its model by pointer), and each
-replay counts it in `megakernel.launches` (`Captured.count_replay`). A
+replay counts it in `megakernel.launches` (`Captured.count_replay`); the
+task's kernels (`envs/task_kernel.py`) record and count the same way. A
 span (`utils/tracing.py`; `env.graph` for the env step, `act.graph` for
 the draws and the policy) covers the copy-in, the replay and the
 copy-out: its calls are the replays.

@@ -45,9 +45,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import weakref
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -659,20 +660,21 @@ def kernel(spec: ModelSpec, dense: bool = False) -> _Kernel:
 
 
 class Captured:
-    """The kernel launches made while a CUDA graph was captured (`capture`):
-    for each, the built kernel, the model and every tensor whose device
-    address the launch baked into the graph, the model's record included.
-    The graph's memory pool does not see the pointers ctypes passes, so the
-    holder of the graph keeps this object with it."""
+    """The counted launches made while a CUDA graph was captured (`capture`):
+    for each, the function that counts it and every tensor whose device
+    address the launch baked into the graph (for the physics kernel, the
+    model's record among them). The graph's memory pool does not see the
+    pointers ctypes passes, so the holder of the graph keeps this object
+    with it. The task kernels (`envs/task_kernel.py`) record here too."""
 
     def __init__(self):
-        self.launches: List[Tuple[_Kernel, Model, List[torch.Tensor]]] = []
+        self.launches: List[Tuple[Callable[[], None], List[torch.Tensor]]] = []
 
     def count_replay(self) -> None:
         """Count the captured launches once, as a replay of the graph runs
         them."""
-        for k, m, _ in self.launches:
-            _count(k, m)
+        for count, _ in self.launches:
+            count()
 
 
 _capturing: Optional[Captured] = None
@@ -680,15 +682,25 @@ _capturing: Optional[Captured] = None
 
 @contextlib.contextmanager
 def capture():
-    """Inside the block, `megakernel_step` records its launches in the
-    `Captured` it yields and counts none of them: under a CUDA graph's
-    capture the kernel runs only when the graph is replayed."""
+    """Inside the block, a counted launch (`launched`) is recorded in the
+    `Captured` it yields and not counted: under a CUDA graph's capture a
+    kernel runs only when the graph is replayed."""
     global _capturing
     outer, _capturing = _capturing, Captured()
     try:
         yield _capturing
     finally:
         _capturing = outer
+
+
+def launched(count: Callable[[], None], held: Sequence[torch.Tensor] = ()) -> None:
+    """Count one launch with `count()`, or inside `capture` keep `held` (the
+    tensors whose addresses the launch baked in) and count it at each
+    replay."""
+    if _capturing is not None:
+        _capturing.launches.append((count, list(held)))
+    else:
+        count()
 
 
 def _count(k: _Kernel, m: Model) -> None:
@@ -715,8 +727,5 @@ def megakernel_step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int,
                         torch.cuda.current_stream(d.qpos.device).cuda_stream)
     if err:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
-    if _capturing is not None:
-        _capturing.launches.append((k, m, [record] + inputs + outputs))
-    else:
-        _count(k, m)
+    launched(functools.partial(_count, k, m), [record] + inputs + outputs)
     return data_from_outputs(d, ctrl, outputs)

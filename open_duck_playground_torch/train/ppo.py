@@ -219,19 +219,16 @@ def loss_fn(net: N.PPONetworks, normalizer: RS.RunningStats, data: dict,
     vs, advantages = gae.compute_gae(
         truncation=truncation, termination=termination, rewards=rewards, values=baseline,
         bootstrap_value=bootstrap, lambda_=cfg.gae_lambda, discount=cfg.discounting)
-    if mesh is None:
-        mean = torch.mean
-    else:
-        count = float(cfg.unroll_length * cfg.batch_size)
-        mean = lambda x: x.sum() / count
+    # every mean is a sum over the minibatch's count, with or without a
+    # mesh, so that one rank rounds as no mesh does
+    count = float(advantages.numel() if mesh is None else cfg.unroll_length * cfg.batch_size)
+    reduce = (lambda ts: ts) if mesh is None else mesh.all_reduce
+    mean = lambda x: x.sum() / count
     if cfg.normalize_advantage:
-        if mesh is None:
-            # population std, as jnp.std
-            advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
-        else:
-            (mu,) = mesh.all_reduce([mean(advantages)])
-            (var,) = mesh.all_reduce([mean((advantages - mu) ** 2)])
-            advantages = (advantages - mu) / (torch.sqrt(var) + 1e-8)
+        # population std, as jnp.std: the mean, then the mean square about it
+        (mu,) = reduce([mean(advantages)])
+        (var,) = reduce([mean((advantages - mu) ** 2)])
+        advantages = (advantages - mu) / (torch.sqrt(var) + 1e-8)
     rho = torch.exp(target_lp - behaviour_lp)
     surrogate = rho * advantages
     clipped = torch.clamp(rho, 1 - cfg.clipping_epsilon, 1 + cfg.clipping_epsilon) * advantages

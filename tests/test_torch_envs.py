@@ -1,6 +1,7 @@
 """The port's env layer against the JAX package: domain randomization, the
 reward functions, the gait oracle, and Joystick reset + 2 steps with the
-JAX env's own random numbers injected.
+JAX env's own random numbers injected, the steps taken by the eager body
+and by the task kernels' body (the host build of `csrc/task_step.cuh`).
 
 Tolerances: ten times the agreement measured on this CPU (3 seeds x reset
 + 2 steps, 8 envs), capped at obs p90 1e-3 / max 1e-2 and reward relative
@@ -24,11 +25,13 @@ from open_duck_playground_tpu.eval_tools import rewards_numpy as RN
 
 from open_duck_playground_torch.envs import imitation as TI
 from open_duck_playground_torch.envs import randomize as TR
+from open_duck_playground_torch.envs import task_kernel as TK
 from open_duck_playground_torch.envs import rewards as TRW
 from open_duck_playground_torch.envs.joystick import (
     Joystick, ObsNoise, ResetDraws, StepDraws,
 )
 from open_duck_playground_torch.interop import state_from_jax
+from task_kernel_check import host_library
 
 torch.set_num_threads(1)
 
@@ -250,7 +253,9 @@ def test_gait_oracle_matches_jax(envs):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_joystick_reset_and_steps_match_jax(envs, jax_fns):
+def _reset_and_steps_match_jax(envs, jax_fns, step):
+    """Reset and two steps of the JAX env and of the port, the port's steps
+    taken by `step(env, state, action, draws)`, at the tolerances above."""
     jenv, tenv = envs
     jreset, jstep = jax_fns
     keys = jax.random.split(jax.random.PRNGKey(11), B)
@@ -267,7 +272,7 @@ def test_joystick_reset_and_steps_match_jax(envs, jax_fns):
         action = rng.uniform(-1, 1, (B, tenv.action_size)).astype(np.float32)
         draws = jax_step_draws(jenv, jstate.info["rng"])
         jstate = jstep(jstate, jnp.asarray(action))
-        tstate = tenv.step(tstate, torch.as_tensor(action), draws)
+        tstate = step(tenv, tstate, torch.as_tensor(action), draws)
         assert_obs_close(jstate.obs, tstate.obs)
         assert_reward_close(jstate.reward, tstate.reward)
         np.testing.assert_array_equal(tstate.done.numpy(), np.asarray(jstate.done))
@@ -275,6 +280,19 @@ def test_joystick_reset_and_steps_match_jax(envs, jax_fns):
         for k in jstate.metrics:
             np.testing.assert_allclose(tstate.metrics[k].numpy(), np.asarray(jstate.metrics[k]),
                                        rtol=METRIC_REL, atol=METRIC_REL, err_msg=k)
+
+
+def test_joystick_reset_and_steps_match_jax(envs, jax_fns):
+    _reset_and_steps_match_jax(envs, jax_fns, lambda env, state, action, draws: env.step(state, action, draws))
+
+
+def test_joystick_task_kernels_match_jax(envs, jax_fns):
+    """The task kernels' body (built by the host's C++ compiler, as
+    tests/test_torch_task_kernel.py holds it against the eager step), with
+    the plain physics between its two launches, on the JAX env's draws."""
+    lib = host_library(TK.kernel_dims(envs[1]))
+    _reset_and_steps_match_jax(envs, jax_fns,
+                               lambda env, state, action, draws: TK.step(env, state, action, draws, lib=lib))
 
 
 def test_state_from_jax_resumes_the_jax_rollout(envs, jax_fns):

@@ -283,6 +283,51 @@ def test_debug_loss_metrics_match_jax(loss_case):
     assert all(np.isfinite(v) for v in tm.values())
 
 
+class _OneRank:
+    """A one-rank mesh: its all-reduce is an identity, as one gloo or NCCL
+    rank's sum is. Counts its calls."""
+    world_size, rank = 1, 0
+
+    def __init__(self):
+        self.calls = 0
+
+    def all_reduce(self, tensors, op="sum"):
+        self.calls += 1
+        return [t.clone() for t in tensors]
+
+
+@pytest.mark.parametrize("debug_loss_metrics", [False, True], ids=["plain", "debug_loss_metrics"])
+def test_a_one_rank_mesh_computes_the_loss_of_no_mesh(loss_case, debug_loss_metrics):
+    """`loss_fn` under a one-rank mesh takes the mesh's path (sums over the
+    minibatch's count, the advantages' mean and variance all-reduced) and
+    gives the no-mesh loss, metrics and gradients bit for bit. The rewards
+    are drawn anew: on `loss_case`'s own, PyTorch's `mean()` and one-pass
+    `std()` happen to round as the two sums do."""
+    net, params, normalizer, data, final_obs = loss_case
+    rng = np.random.default_rng(9)
+    tdata = {k: T_(v) for k, v in data.items() if k != "obs"}
+    tdata["obs"] = {k: T_(v) for k, v in data["obs"].items()}
+    tdata["reward"] = T_(_f32(rng, *data["reward"].shape, scale=0.5, loc=0.5))
+    tfinal = {k: T_(v) for k, v in final_obs.items()}
+    noise = T_(_f32(rng, *data["raw_action"].shape))
+    mesh = _OneRank()
+    out = []
+    for m in (None, mesh):
+        tnet, tnorm = _port_side(params, normalizer)
+        total, metrics, maxima = ppo.loss_fn(tnet, tnorm, tdata, tfinal, noise, CFG, mesh=m,
+                                             debug_loss_metrics=debug_loss_metrics)
+        total.backward()
+        out.append(({**metrics, **maxima}, [p.grad for p in tnet.parameters()]))
+    assert mesh.calls == 2  # the advantages' mean, then their variance
+    (want, want_grads), (got, got_grads) = out
+    assert set(got) == set(want) and len(want) == (16 if debug_loss_metrics else 4)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert len(got_grads) == len(want_grads) > 0
+    for g, w in zip(got_grads, want_grads):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("scale", [40.0, 0.02], ids=["norm_above_1", "norm_below_1"])
 def test_optimizer_step_matches_optax(loss_case, scale):
     """Two steps from the same gradients through optax.chain(
