@@ -21,8 +21,10 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      +-3 m of rough terrain and must see active contacts on tilted
      triangles; the degenerate partition runs the same check at 1024 envs,
      and the plane build at the evaluator's shape (128 envs, nominal model);
-  3b. task_kernels: the joystick task's two kernels (tk_pre, tk_post) at
-     the eval's and the rollout's batch (128 and 8192 envs): one fused step
+  3b. task_kernels: the task's two kernels (tk_pre, tk_post) at the eval's
+     and the rollout's batch (128 and 8192 envs), in the joystick build
+     (joystick / flat_terrain_backlash) and in the standing build
+     (standing / flat_terrain): one fused step
      against the eager body from the same state (physics state, integer
      and bool leaves bit for bit, floats within tests/task_kernel_check.py's
      ULPS of each column's
@@ -56,7 +58,8 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      plane kernel;
   8. standing: one full-width training step of standing / flat_terrain with
      head_direct_targets (the head servos must take the head commands),
-     every physics step through the flat_terrain build;
+     every physics step through the flat_terrain build and every env step
+     a fused step of the task kernels' standing build;
   9. no_head: `cli.runner.main` at the full PPO config on joystick /
      flat_terrain_no_head with the no-head training recipe (rsi_prob 0.5,
      progress 6, yaw_rate_l1 -3, lin_vel_l1 -2): one training step and an
@@ -516,32 +519,59 @@ def task_bytes(P, d, nmetrics: int) -> int:
     once: the pre launch's inputs (the gait frame it gathers among them)
     and outputs, and the post launch's, of the physics outputs only the
     entries it reads (the feet's heights, the IMU's frame, 19 sensor
-    values)."""
+    values; the standing terms' orientation reads 2 more)."""
     U, V, Q, IH, F2 = d["NU"], d["NV"], d["NQ"], d["IHIST"], d["NFOOT"]
     nref = d["GDIM"] if d["IMITATION"] else 0
+    nsens = 19 + 2 * int(bool(d.get("STANDING")))
     nstate, npriv = P.TK.library(d).obs_sizes
     pre = 4 * (U + V + 1 + 7 + d["AHIST"] * U + 2 + U + 2 + nref) + 8 + 4 * (
         1 + 2 * d["IMITATION"] * d["OBS_PHASE"] + nref + d["AHIST"] * U + 2 + V + U)
-    post_in = 4 * (Q + V + F2 + 9 + U + F2 * d["KPTS"] + 19 + U + 7 + 3 * U + U + 1 + 2 * d["OBS_PHASE"] + nref
+    post_in = 4 * (Q + V + F2 + 9 + U + F2 * d["KPTS"] + nsens + U + 7 + 3 * U + U + 1 + 2 * d["OBS_PHASE"] + nref
                    + 2 * F2 + 2 + 3 * IH + 9 + 2 * U + 7)
     post_out = 4 * (nstate + npriv + 2 + 2 * F2 + 3 * IH + 2 + 7 + nmetrics) + F2
     return pre + post_in + post_out
 
 
 def task_phase(P, gen, smi) -> dict:
-    """The task kernels (row 3) at the eval's and the rollout's batch: one
-    fused step against the eager body from the same state, the kernels'
-    device ms (a CUDA graph of the fused step with its physics launch
-    stubbed by the launch's own outputs, so that the graph holds the two
-    kernels alone, replayed under CUDA events: no profiler here, whose
-    sessions early in the process cost phase profile its device events),
-    the eager body's ms less its physics launch (`plain_ms`) and the
-    bytes-bound ms; returns the row."""
+    """The task kernels (row 3) at the eval's and the rollout's batch, in
+    the joystick build and in the standing build: one fused step against
+    the eager body from the same state, the kernels' device ms (a CUDA
+    graph of the fused step with its physics launch stubbed by the
+    launch's own outputs, so that the graph holds the two kernels alone,
+    replayed under CUDA events: no profiler here, whose traces early in
+    the process cost phase profile its device events), the eager body's ms
+    less its physics launch (`plain_ms`) and the bytes-bound ms; returns
+    the row (the joystick build's, the standing build's under `standing`)."""
+    builds = {"joystick": lambda: P.J.Joystick(CLI_TASK, device=gen.device),
+              "standing": lambda: P.S.Standing("flat_terrain", device=gen.device)}
+    per_build, failures = {}, []
+    for build, make_env in builds.items():
+        per_build[build] = task_batches(P, gen, make_env)
+        failures += [f"{build} at {n} envs" for n, b in per_build[build].items() if not b["ok"]]
+    emit({"phase": "task_kernels", "builds": {k: list(v.values()) for k, v in per_build.items()},
+          "ulps_gate": P.TKC.ULPS, "ms_is": "a replay of a CUDA graph of the two kernels", "ok": not failures,
+          "card": smi})
+    if failures:
+        raise SystemExit(f"the task kernels disagree with the eager step: {failures}")
+
+    def row(per_batch):
+        first, last = (per_batch[n] for n in TASK_ENVS)
+        return {"envs": list(TASK_ENVS), "ms": [first["ms"], last["ms"]],
+                "plain_ms": [first["plain_ms"], last["plain_ms"]], "bound_ms": [first["bound_ms"], last["bound_ms"]],
+                "bound_by": "bytes", "max_ulps": max(first["max_ulps"], last["max_ulps"])}
+
+    return {"name": "task_step", "route": "cuda", "source": "open_duck_playground_torch/csrc/task_step.cu",
+            "replaces": P.TK.TPU_KERNEL, **row(per_build["joystick"]), "standing": row(per_build["standing"]),
+            "library_ms": None, "library_note": "no single PyTorch call computes a task step"}
+
+
+def task_batches(P, gen, make_env) -> dict:
+    """The task phase's measurements of one build at each of TASK_ENVS."""
     dev = gen.device
     TK, F, TKC = P.TK, P.F, P.TKC
-    per_batch, failures = {}, []
+    per_batch = {}
     for n in TASK_ENVS:
-        env = P.J.Joystick(CLI_TASK, device=dev)
+        env = make_env()
         state = env.reset(env.reset_draws(gen, n))
         action = 3.0 * torch.rand((n, env.action_size), generator=gen, device=dev) - 1.5
         draws = env.step_draws(gen, n)
@@ -572,22 +602,12 @@ def task_phase(P, gen, smi) -> dict:
             physics_ms = cuda_ms(lambda: F.step(env.model, state.data, state.info["motor_targets"],
                                                 env.n_substeps), 10)
         nbytes = n * task_bytes(P, TK.kernel_dims(env), len(env._metric_keys))
-        per_batch[n] = {"envs": n, "ms": ms, "plain_ms": step_ms - physics_ms, "eager_step_ms": step_ms,
-                        "physics_ms": physics_ms, "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-                        "physics_same": physics_same, "ints_same": ints_same, "max_ulps": ulps}
-        if not (physics_same and ints_same and ulps <= TKC.ULPS):
-            failures.append(n)
-    emit({"phase": "task_kernels", "batches": list(per_batch.values()), "ulps_gate": TKC.ULPS,
-          "ms_is": "a replay of a CUDA graph of the two kernels", "ok": not failures, "card": smi})
-    if failures:
-        raise SystemExit(f"the task kernels disagree with the eager step at {failures} envs")
-    first, last = (per_batch[n] for n in TASK_ENVS)
-    return {"name": "task_step", "route": "cuda", "source": "open_duck_playground_torch/csrc/task_step.cu",
-            "replaces": TK.TPU_KERNEL,
-            "envs": list(TASK_ENVS), "ms": [first["ms"], last["ms"]], "plain_ms": [first["plain_ms"], last["plain_ms"]],
-            "bound_ms": [first["bound_ms"], last["bound_ms"]], "bound_by": "bytes",
-            "max_ulps": max(first["max_ulps"], last["max_ulps"]), "library_ms": None,
-            "library_note": "no single PyTorch call computes a task step"}
+        per_batch[n] = {"envs": n, "dims": TK.kernel_dims(env), "ms": ms, "plain_ms": step_ms - physics_ms,
+                        "eager_step_ms": step_ms, "physics_ms": physics_ms, "bytes": nbytes,
+                        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "physics_same": physics_same,
+                        "ints_same": ints_same, "max_ulps": ulps,
+                        "ok": physics_same and ints_same and ulps <= TKC.ULPS}
+    return per_batch
 
 
 def rollout_phase(P, gen, smi, steps: int) -> int:
@@ -1100,10 +1120,12 @@ def standing_phase(P, gen, smi) -> int:
 
     torch.cuda.synchronize()
     P.MK.reset_launches()
+    P.TK.reset_counts()
     t0 = time.perf_counter()
     ts, state, metrics = ppo.training_step(ts, train_env, env, state, cfg, gen, phase_hook=hook)
     launches = P.MK.launches
     kernel_launches = P.MK.kernel(env.model.spec).launches
+    fused = P.TK.build_launches.get(P.TK.build_key(env), 0)
     sizes = {k: int(v.shape[-1]) for k, v in state.obs.items()}
     net_in = {cfg.policy_obs_key: ts.net.policy.sizes[0], cfg.value_obs_key: ts.net.value_mlp.sizes[0]}
     metrics = {k: float(v) for k, v in metrics.items()}
@@ -1113,15 +1135,18 @@ def standing_phase(P, gen, smi) -> int:
     # the last step's servo targets: the head's are the head commands
     head_targets = bool(torch.equal(state.info["motor_targets"][:, 5:9], state.info["command"][:, 3:7]))
     ok = (launches == kernel_launches == control_steps and P.MK.launches_hfield == 0 and finite
-          and net_in == sizes and ts.env_steps == cfg.steps_per_training_step and head_targets)
+          and net_in == sizes and ts.env_steps == cfg.steps_per_training_step and head_targets
+          and fused == P.TK.launches == control_steps and P.TK.eager_steps == 0)
     emit({"phase": "standing", "task": "flat_terrain", "envs": cfg.num_envs, "head_direct_targets": True,
           "rollout_seconds": marks[0] - t0, "update_seconds": marks[1] - marks[0],
           "kernel_launches": launches, "flat_terrain_kernel_launches": kernel_launches,
+          "fused_standing_steps": fused, "task_eager_steps": P.TK.eager_steps,
           "obs_sizes": sizes, "network_inputs": net_in, "head_targets_equal_head_commands": head_targets,
           "metrics": metrics, "finite": finite, "ok": ok, "card": smi})
     if not ok:
         raise SystemExit(f"standing failed: {launches} launches ({kernel_launches} of the flat_terrain "
-                         f"build) for {control_steps} control steps, finite {finite}, obs {sizes}, "
+                         f"build) and {fused} fused standing steps ({P.TK.eager_steps} eager) for "
+                         f"{control_steps} control steps, finite {finite}, obs {sizes}, "
                          f"network inputs {net_in}, head targets equal head commands {head_targets}")
     return kernel_launches
 

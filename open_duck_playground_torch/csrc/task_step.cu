@@ -1,6 +1,7 @@
 // CUDA entry points of the joystick task's step around the physics launch
 // (body in task_step.cuh): `tk_pre` before the megakernel, `tk_post` after
-// it, one thread per env.
+// it, one thread per env. The standing task inherits the step; its build
+// (-DTK_STANDING=1) computes its own reward terms.
 //
 // Replaces no TPU kernel: the JAX package's `envs/joystick.py` step is
 // plain jnp, fused by XLA. These two launches take the place of the ~240

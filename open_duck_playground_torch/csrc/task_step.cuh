@@ -1,6 +1,8 @@
 // Joystick task step around the physics launch, for ONE env: `tk_pre_env`
 // computes everything the physics launch needs, `tk_post_env` everything
-// after it.
+// after it. The standing task (envs/standing.py) inherits the step and
+// differs in its reward terms alone: its build (-DTK_STANDING=1) computes
+// its six terms in place of the joystick's ten.
 //
 // Replaces no TPU kernel: the JAX package's step (envs/joystick.py) is
 // plain jnp that XLA fuses into a few kernels. The port's eager
@@ -23,9 +25,9 @@
 // division on the host (`tk_divs`).
 //
 // Shapes are compile-time constants (-D flags from envs/task_kernel.py),
-// one build per robot and observation layout; the env's index tables,
-// scales and flags are one TkRecord, which a launch passes by pointer; the
-// record points at the gait oracle's frame table. The body is __host__
+// one build per robot, observation layout and term set; the env's index
+// tables, scales and flags are one TkRecord, which a launch passes by
+// pointer; the record points at the gait oracle's frame table. The body is __host__
 // __device__, so the same text compiles with a host C++ compiler
 // (task_step_host.cpp, a test harness that loops over the envs).
 #pragma once
@@ -46,6 +48,12 @@
     !defined(TK_OBS_PHASE) || !defined(TK_GDX) || !defined(TK_GDY) || !defined(TK_GDT) || \
     !defined(TK_GPH) || !defined(TK_GDIM)
 #error "task dimensions must be given with -D flags (envs/task_kernel.py)"
+#endif
+
+// The term set: the joystick's (TK_STANDING 0, the default: the joystick
+// builds take no flag for it) or the standing task's (1).
+#ifndef TK_STANDING
+#define TK_STANDING 0
 #endif
 
 #if TK_NU != 14 && TK_NU != 10
@@ -71,6 +79,16 @@
 #define TK_NPRIV (TK_NSTATE + 15 + 3 * TK_NU + 1 + TK_NFOOT + TK_NFOOTVEL + TK_NFOOT + TK_NREF + \
                   (TK_OBS_PHASE ? 3 : 0))
 
+#if TK_STANDING
+// The reward terms, in the order of Standing._get_reward.
+#define TK_NTERM 6
+#define TK_ORIENT 0
+#define TK_TORQUES 1
+#define TK_ACTION_RATE 2
+#define TK_ALIVE 3
+#define TK_STAND_STILL 4
+#define TK_HEAD_POS 5
+#else
 // The reward terms, in the order of Joystick._get_reward.
 #define TK_NTERM 10
 #define TK_TRACK_LIN 0
@@ -83,6 +101,7 @@
 #define TK_PROGRESS 7
 #define TK_YAW_L1 8
 #define TK_LIN_L1 9
+#endif
 
 // A command resamples once the step counter passes this (Joystick.step).
 #define TK_RESAMPLE_AFTER 500
@@ -120,6 +139,9 @@ struct TkRecord {
   int speed_limit;                    // clamp the motor targets' slew
   int head_direct;                    // the head servos take the head command
   int push_enable;
+#if TK_STANDING
+  int head_ungated;                   // head_pos without its gate on moving commands
+#endif
 };
 
 // Pointers of the launch before the physics: inputs, then outputs.
@@ -499,6 +521,9 @@ TK_HD inline void tk_post_env(const TkRecord& R, const TkPost& a, int e) {
     gravity[k] = fmaf(xmat[6 + k], R.down[2], fmaf(xmat[3 + k], R.down[1], xmat[k] * R.down[0]));
   }
   const float up_z = sens[R.s_up + 2];
+#if TK_STANDING
+  const float up_x = sens[R.s_up], up_y = sens[R.s_up + 1];
+#endif
 #pragma unroll
   for (int k = 0; k < TK_NFOOTVEL; k++) footv[k] = sens[R.foot_vel[k]];
 
@@ -548,6 +573,9 @@ TK_HD inline void tk_post_env(const TkRecord& R, const TkPost& a, int e) {
 #if TK_HEAD
   const int row_head = R.row_head;
 #endif
+#if TK_STANDING && TK_HEAD
+  const bool head_ungated = R.head_ungated != 0;
+#endif
 
   // the noisy readings of the observation
   float noisy_gyro[3], noisy_accel[3], noisy_grav[3], obs_jpos[TK_NU], obs_jvel[TK_NU];
@@ -568,12 +596,16 @@ TK_HD inline void tk_post_env(const TkRecord& R, const TkPost& a, int e) {
 
   // the reward terms (envs/rewards.py, envs/imitation.py)
   float r[TK_NTERM];
+#if TK_STANDING
+  r[TK_ORIENT] = tk_nn(tk_sq(up_x) + tk_sq(up_y));
+#else
   {
     const float ex = tk_sq(cmd[0] - linvel[0]);
     const float ey = tk_clamp_min(fabsf(linvel[1] - cmd[1]) - 0.1f, 0.0f);
     r[TK_TRACK_LIN] = tk_nn(expf(tk_divs(-(ex + tk_sq(ey)), R.sigma)));
   }
   r[TK_TRACK_ANG] = tk_nn(expf(tk_divs(-tk_sq(cmd[2] - gyro[2]), R.sigma)));
+#endif
   {
     float s = 0.0f, u = 0.0f;
 #pragma unroll
@@ -585,6 +617,27 @@ TK_HD inline void tk_post_env(const TkRecord& R, const TkPost& a, int e) {
   }
   r[TK_ALIVE] = 1.0f;
   const float cn3 = tk_norm3(cmd[0], cmd[1], cmd[2]);
+#if TK_STANDING
+  {  // stand_still over the legs alone (ignore_head)
+    float pose = 0.0f, vel = 0.0f;
+#pragma unroll
+    for (int k = 0; k < TK_NLEG; k++) pose = pose + fabsf(jq[tk_leg(k)] - def[tk_leg(k)]);
+#pragma unroll
+    for (int k = 0; k < TK_NLEG; k++) vel = vel + fabsf(jv[tk_leg(k)]);
+    r[TK_STAND_STILL] = tk_nn(pose + vel) * (cn3 < 0.01f ? 1.0f : 0.0f);
+  }
+#if TK_HEAD
+  {  // head_pos, gated to moving commands unless ungated
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; k++) s = s + tk_sq(jq[5 + k] - cmd[3 + k]);
+    const float err = tk_nn(s);
+    r[TK_HEAD_POS] = head_ungated ? err : err * (cn3 > 0.01f ? 1.0f : 0.0f);
+  }
+#else
+  r[TK_HEAD_POS] = 0.0f;  // nothing to track on the no-head robot
+#endif
+#else
 #if TK_IMITATION
   {
     float bq[6];  // the base velocity
@@ -630,6 +683,7 @@ TK_HD inline void tk_post_env(const TkRecord& R, const TkPost& a, int e) {
   }
   r[TK_YAW_L1] = tk_nn(fabsf(cmd[2] - gyro[2]));
   r[TK_LIN_L1] = tk_nn(fabsf(cmd[0] - linvel[0]) + fabsf(cmd[1] - linvel[1]));
+#endif
   float total = 0.0f;
 #pragma unroll
   for (int t = 0; t < TK_NTERM; t++) total = total + r[t] * R.reward_scale[t];

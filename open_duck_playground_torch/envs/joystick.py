@@ -17,8 +17,8 @@ The class flags (`use_imitation`, `use_motor_speed_limits`,
 `obs_has_motor_targets`, `obs_has_imitation_phase`) are the JAX class's;
 `envs/standing.py` turns them off. `task_kernel` (the port's) says that the
 class's step on CUDA tensors runs as two CUDA kernels around the physics
-launch (`envs/task_kernel.py`); the body of `step` is their plain version,
-the path of CPU tensors, and `Standing`'s, which turns the flag off. The
+launch (`envs/task_kernel.py`; `Standing` takes their standing build); the
+body of `step` is their plain version, the path of CPU tensors. The
 robot has 14 actuators (legs 0:5 and 9:14, head 5:9) or, on
 `flat_terrain_no_head`, 10 (legs only): the head's
 metric and `head_direct_targets` exist only on the first, the gait
@@ -41,6 +41,7 @@ import math
 import torch
 
 from open_duck_playground_torch.envs import duck_base, imitation, rewards as R, task_kernel
+from open_duck_playground_torch.envs.task_kernel import JOYSTICK_TERMS
 from open_duck_playground_torch.envs.duck_base import DuckEnv
 from open_duck_playground_torch.envs.env_types import State
 from open_duck_playground_torch.envs.gait_oracle import GaitOracle
@@ -239,8 +240,12 @@ class Joystick(DuckEnv):
     obs_has_motor_targets = True
     obs_has_imitation_phase = True
     # on CUDA tensors the step runs as two CUDA kernels around the physics
-    # launch (`envs/task_kernel.py`); a task whose step differs turns it off
+    # launch (`envs/task_kernel.py`, a build per term set); the tests turn
+    # it off on an instance to run the eager body, their reference
     task_kernel = True
+    # the reward terms of `_get_reward`, in its order: the term set of the
+    # task kernels' build (`task_kernel.kernel_dims`)
+    reward_terms = JOYSTICK_TERMS
 
     def __init__(self, task: str = "flat_terrain", config=None,
                  config_overrides: Optional[Mapping[str, Any]] = None, device="cuda"):

@@ -12,6 +12,12 @@ the head command.
 
 The draws are the joystick task's (`ResetDraws`, `StepDraws`); only the
 command they carry is sampled by `Standing.sample_command`.
+
+On CUDA tensors the inherited step (and the inherited flag `task_kernel`)
+runs as the task's two CUDA kernels (`envs/task_kernel.py`), in their
+standing build: this task's six terms and its observation layout (no
+imitation, no motor targets). The eager body (`Joystick.step` with this
+class's `_get_reward`) is the CPU's path and the reference of the tests.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from open_duck_playground_torch.envs import rewards as R
 from open_duck_playground_torch.envs.joystick import (
     Joystick, NoiseConfig, NoiseScales, PushConfig, _u, head_ranges,
 )
+from open_duck_playground_torch.envs.task_kernel import STANDING_TERMS
 
 
 def _reward_scales() -> Dict[str, float]:
@@ -76,7 +83,7 @@ class Standing(Joystick):
     use_motor_speed_limits = False
     obs_has_motor_targets = False
     obs_has_imitation_phase = False
-    task_kernel = False  # its rewards and observation are its own: the eager step
+    reward_terms = STANDING_TERMS
 
     @staticmethod
     def default_config():

@@ -1,20 +1,26 @@
 """The joystick task's step on the card as two hand-written CUDA kernels
-around the physics launch (`csrc/task_step.cu`, body in `task_step.cuh`).
+around the physics launch (`csrc/task_step.cu`, body in `task_step.cuh`),
+for the joystick task and for the standing task that inherits its step.
 
-`Joystick.step` on CUDA tensors, for a task class with `task_kernel = True`,
-calls `step` here: one launch (`tk_pre`) computes what the physics launch
-needs (the gait's frame index, phase and reference frame, the action
-history and the delayed action, the push, the motor targets), `forward.step`
-launches the megakernel, and one launch (`tk_post`) computes the rest in
-the eager body's order and formulas (contacts, air times, swing peaks, both
-observations, termination, the ten reward terms and their clamped sum, the
-info's counters and command resample, the metrics). The eager body in
+`Joystick.step` on CUDA tensors, for a task class with `task_kernel = True`
+(`Joystick` and `Standing`), calls `step` here: one launch (`tk_pre`)
+computes what the physics launch needs (the gait's frame index, phase and
+reference frame, the action history and the delayed action, the push, the
+motor targets), `forward.step` launches the megakernel, and one launch
+(`tk_post`) computes the rest in the eager body's order and formulas
+(contacts, air times, swing peaks, both observations, termination, the
+reward terms and their clamped sum, the info's counters and command
+resample, the metrics). The reward terms are the task class's
+`reward_terms`: the joystick's ten (`JOYSTICK_TERMS`) or the standing
+task's six (`STANDING_TERMS`, in a build of its own). The eager body in
 `Joystick.step` is the plain version: the CPU's path and the reference of
 the tests. Tensors the eager body only re-binds (`last_last_act =
 last_act`) stay aliases here too.
 
 Shapes are build constants (`kernel_dims`: the robot's sizes, the history
-lengths, the observation layout), one library per set, built with nvcc at
+lengths, the observation layout, and `STANDING=1` for the standing term
+set; a joystick build has no such key, so its -D flags are those of the
+builds before the standing one), one library per set, built with nvcc at
 first use into `build/kernels/` and bound with ctypes. Everything else is
 the env's record (`record`): a `TkRecord` in a uint8 tensor, one per env
 object and device, made at the env's first eager step there (a CUDA graph's
@@ -24,13 +30,18 @@ runs on the tensors' current stream, does not synchronize and allocates
 nothing: the outputs are allocated here with torch.empty.
 
 Counters: `launches`, fused task steps (one per `tk_post` launch, and one per
-replay of a CUDA graph that captured one); `eager_steps`, task step bodies
-on CUDA tensors that ran eagerly (`count_eager_step`), counted the same way.
+replay of a CUDA graph that captured one); `build_launches`, the same
+steps by build: keyed by `build_key` (the build's `kernel_dims` as sorted
+items, the rows of the metrics table the step writes), so that a reader
+recovers the dims (`dict(key[0])`) and the term set (`terms(dims)`); `eager_steps`,
+task step bodies on CUDA tensors that ran eagerly (`count_eager_step`),
+counted the same way. `reset_counts` zeroes all three.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
 from typing import Dict, List, Optional, Tuple
 
@@ -46,26 +57,31 @@ from open_duck_playground_torch.physics import megakernel as MK
 SOURCE, HEADERS = "task_step.cu", ("task_step.cuh",)
 TPU_KERNEL = "none: the JAX package's envs/joystick.py step, fused by XLA"
 
-# the reward terms in the order of `Joystick._get_reward` (task_step.cuh's TK_*)
-TERMS = ("tracking_lin_vel", "tracking_ang_vel", "torques", "action_rate", "alive", "imitation",
-         "stand_still", "progress", "yaw_rate_l1", "lin_vel_l1")
+# the reward terms of each term set in the order of its task's `_get_reward`
+# (task_step.cuh's TK_*)
+JOYSTICK_TERMS = ("tracking_lin_vel", "tracking_ang_vel", "torques", "action_rate", "alive", "imitation",
+                  "stand_still", "progress", "yaw_rate_l1", "lin_vel_l1")
+STANDING_TERMS = ("orientation", "torques", "action_rate", "alive", "stand_still", "head_pos")
 _SENSORS = {"s_gyro": duck_base.GYRO_SENSOR, "s_accel": duck_base.ACCELEROMETER_SENSOR,
             "s_up": duck_base.GRAVITY_SENSOR, "s_linvel": duck_base.LOCAL_LINVEL_SENSOR,
             "s_angvel": duck_base.GLOBAL_ANGVEL_SENSOR}
 
 launches = 0
 eager_steps = 0
+build_launches: Dict[tuple, int] = {}
 
 
 def reset_counts() -> None:
     global launches, eager_steps
     launches = 0
     eager_steps = 0
+    build_launches.clear()
 
 
-def _count_fused() -> None:
+def _count_fused(build: tuple) -> None:
     global launches
     launches += 1
+    build_launches[build] = build_launches.get(build, 0) + 1
 
 
 def _count_eager() -> None:
@@ -80,6 +96,24 @@ def count_eager_step() -> None:
 
 
 # ------------------------------------------------------------ shapes and record
+def terms(dims: Dict[str, int]) -> Tuple[str, ...]:
+    """The reward terms a build for `dims` computes, in its order."""
+    return STANDING_TERMS if dims.get("STANDING") else JOYSTICK_TERMS
+
+
+def term_set(env) -> Tuple[str, ...]:
+    """`env`'s reward terms (its class's `reward_terms`), checked against
+    the reward scales of its config."""
+    names = env.reward_terms
+    if names not in (JOYSTICK_TERMS, STANDING_TERMS):
+        raise NotImplementedError(f"the task kernels compute the terms {JOYSTICK_TERMS} or {STANDING_TERMS}, "
+                                  f"the task {names}")
+    scales = set(env.config.reward_config.scales)
+    if scales != set(names):
+        raise NotImplementedError(f"the task's terms {names}, the config's scales {sorted(scales)}")
+    return names
+
+
 def kernel_dims(env) -> Dict[str, int]:
     """The -D constants of the task kernels for `env`."""
     s = env.model.spec
@@ -94,18 +128,27 @@ def kernel_dims(env) -> Dict[str, int]:
         if b - a != 3:
             raise NotImplementedError(f"sensor {name} has {b - a} entries, the task kernels read 3")
     gait = tuple(env.gait.frames.shape) if env.use_imitation else (1, 1, 1, 1, 1)
+    standing = {"STANDING": 1} if term_set(env) == STANDING_TERMS else {}
     return dict(
         NQ=s.nq, NV=s.nv, NU=env.action_size, NSITE=s.nsite, NSENS=s.nsensordata, NFOOT=nfoot,
         KPTS=s.points_per_foot, AHIST=cfg.noise_config.action_max_delay,
         IHIST=cfg.noise_config.imu_max_delay, IMITATION=int(env.use_imitation),
         OBS_MOTOR=int(env.obs_has_motor_targets), OBS_PHASE=int(env.obs_has_imitation_phase),
-        GDX=gait[0], GDY=gait[1], GDT=gait[2], GPH=gait[3], GDIM=gait[4],
+        GDX=gait[0], GDY=gait[1], GDT=gait[2], GPH=gait[3], GDIM=gait[4], **standing,
     )
+
+
+def build_key(env, dims: Optional[Dict[str, int]] = None) -> tuple:
+    """The key of `env`'s fused steps in `build_launches`: its build's dims
+    (`dims`, or `kernel_dims(env)`) as sorted items, and the rows of its
+    metrics table."""
+    dims = kernel_dims(env) if dims is None else dims
+    return tuple(sorted(dims.items())), len(env._metric_keys)
 
 
 def record_fields(d: Dict[str, int]) -> List[Tuple[str, str, Tuple[int, ...]]]:
     """(name, 'p'|'i'|'f', shape) of TkRecord, in the order of task_step.cuh."""
-    U, T = d["NU"], len(TERMS)
+    U, T = d["NU"], len(terms(d))
     return [
         ("gait", "p", ()),
         ("gait_x", "f", (d["GDX"],)), ("gait_y", "f", (d["GDY"],)), ("gait_t", "f", (d["GDT"],)),
@@ -120,6 +163,7 @@ def record_fields(d: Dict[str, int]) -> List[Tuple[str, str, Tuple[int, ...]]]:
         *[(name, "i", ()) for name in _SENSORS],
         ("row_swing", "i", ()), ("row_lin", "i", ()), ("row_ang", "i", ()), ("row_head", "i", ()),
         ("speed_limit", "i", ()), ("head_direct", "i", ()), ("push_enable", "i", ()),
+        *([("head_ungated", "i", ())] if d.get("STANDING") else []),
     ]
 
 
@@ -143,8 +187,7 @@ def record_tables(env) -> Dict[str, object]:
     cfg = env.config
     nc = cfg.noise_config
     scales = cfg.reward_config.scales
-    if set(scales) != set(TERMS):
-        raise NotImplementedError(f"the task kernels compute the terms {TERMS}, the config scales {sorted(scales)}")
+    names = term_set(env)
     keys = env._metric_keys
     cpu = lambda t: t.detach().cpu().numpy()
     backlash = [-1] * env.action_size
@@ -159,15 +202,16 @@ def record_tables(env) -> Dict[str, object]:
         gait_x=grids[0], gait_y=grids[1], gait_t=grids[2],
         default_act=cpu(env._default_actuator), qpos_noise=cpu(env._qpos_noise_scale),
         ref_offset=np.zeros(10, np.float32) if offset is None else cpu(offset),
-        reward_scale=np.array([scales[t] for t in TERMS], np.float32), down=cpu(env._down),
-        dt=env.dt, action_scale=cfg.action_scale, motor_lim=cfg.max_motor_velocity * env.dt,
+        reward_scale=np.array([scales[t] for t in names], np.float32), down=cpu(env._down),
+        dt=env.dt, action_scale=cfg.action_scale,
+        motor_lim=cfg.max_motor_velocity * env.dt if env.use_motor_speed_limits else 0.0,
         dof_vel_scale=cfg.dof_vel_scale, level=nc.level, sc_gyro=nc.scales.gyro,
         sc_accel=nc.scales.accelerometer, sc_gravity=nc.scales.gravity, sc_jvel=nc.scales.joint_vel,
         sigma=cfg.reward_config.tracking_sigma,
         act_qadr=env._actuator_qposadr.tolist(), act_dadr=env._actuator_dofadr.tolist(),
         backlash_qadr=backlash,
         metric_row=[keys.index(("reward/" if scales[t] > 0 else "cost/") + t) if scales[t] != 0 else -1
-                    for t in TERMS],
+                    for t in names],
         foot_vel=env._foot_linvel_sensor_adr.tolist(), feet_site=env._feet_site_id.tolist(),
         imu_site=env._site_id, fb_qadr=env._floating_base_qpos_addr, fb_dadr=env._floating_base_qvel_addr,
         **{name: env._sensor_slices[sensor][0] for name, sensor in _SENSORS.items()},
@@ -177,6 +221,7 @@ def record_tables(env) -> Dict[str, object]:
         speed_limit=int(env.use_motor_speed_limits),
         head_direct=int(env.has_head and cfg.head_direct_targets),
         push_enable=int(cfg.push_config.enable),
+        **({"head_ungated": int(cfg.head_pos_ungated)} if names == STANDING_TERMS else {}),
     )
 
 
@@ -288,9 +333,9 @@ def _inputs(dev: torch.device, args) -> List[Optional[torch.Tensor]]:
 
 def step(env, state: State, action: torch.Tensor, draws, model=None,
          lib: Optional[TaskLibrary] = None) -> State:
-    """`env.step(state, action, draws, model)` (a Joystick) through the two
-    kernels around `forward.step`; `lib` is the card's library unless given
-    (the CPU tests give the host harness's)."""
+    """`env.step(state, action, draws, model)` (a Joystick or a Standing)
+    through the two kernels around `forward.step`; `lib` is the card's
+    library unless given (the CPU tests give the host harness's)."""
     model = model if model is not None else env.model
     dev = state.data.qvel.device
     rec, gait, d = record(env, dev)
@@ -361,7 +406,7 @@ def step(env, state: State, action: torch.Tensor, draws, model=None,
     lib.launch("tk_post", rec, post_in + post_out, B, dev)
     held = [t for t in [rec, gait, *pre_in, imitation_i, phase, ref, hist, push, qvel, targets, *post_in, *post_out]
             if t is not None]
-    MK.launched(_count_fused, held)
+    MK.launched(functools.partial(_count_fused, build_key(env, d)), held)
 
     info["feet_air_time"] = air_time
     info["swing_peak"] = swing_peak

@@ -1,18 +1,19 @@
 """Breakdown of one control step: physics alone, the full env step, the
 gait oracle, and the layers between them.
 
-    python -m open_duck_playground_torch.tools.profile_step \\
+    python -m open_duck_playground_torch.tools.profile_step [--env joystick] \\
         [--task flat_terrain_backlash] [--envs 4096] [--steps 500] [--reps 3]
 
 Counterpart of the JAX package's `tools/profile_step.py`, from `reset`
-states of `Joystick(task)` on the nominal model, each piece chained
+states of `Joystick(task)` (or, with `--env standing`, `Standing(task)`) on
+the nominal model, each piece chained
 `--steps` times, one untimed run and `--reps` timed ones from the same
 start (CUDA events on the card):
   1. physics alone: `forward.step` with the env's 10 substeps under the
      home keyframe's ctrl, on the card one launch of the megakernel;
   2. the full `Joystick.step` under zero actions, its step draws taken in
      the loop as the trainer takes them;
-  3. the gait oracle's `reference_frame` alone.
+  3. the gait oracle's `reference_frame` alone (a task with imitation).
 The port adds one control step of `ppo.run_eval` (`ppo.eval_actor`: the
 step draws and the stochastic policy of fresh networks, then `EvalEnv.step`
 under no grad, so that on the card both replay their CUDA graphs: episodes
@@ -65,6 +66,7 @@ def profile(argv=None, device="cuda"):
     its last timed run (`physics`: the Data after `--steps` chained steps
     from the reset states)."""
     from open_duck_playground_torch.envs.joystick import Joystick
+    from open_duck_playground_torch.envs.standing import Standing
     from open_duck_playground_torch.envs.wrappers import EvalEnv
     from open_duck_playground_torch.physics import forward as F
     from open_duck_playground_torch.physics import megakernel as MK
@@ -73,6 +75,7 @@ def profile(argv=None, device="cuda"):
     from open_duck_playground_torch.utils import tracing
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--env", choices=("joystick", "standing"), default="joystick")
     ap.add_argument("--task", default="flat_terrain_backlash")
     ap.add_argument("--envs", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=500)
@@ -82,7 +85,7 @@ def profile(argv=None, device="cuda"):
     if dev.type == "cuda":
         F.pin_f32()
     n = args.envs
-    env = Joystick(args.task, device=dev)
+    env = {"joystick": Joystick, "standing": Standing}[args.env](args.task, device=dev)
     m = env.model
     gen = torch.Generator(device=dev).manual_seed(0)
     state = env.reset(env.reset_draws(gen, n))
@@ -121,9 +124,10 @@ def profile(argv=None, device="cuda"):
         "env_step": ("full env.step (batched)", env_step, state),
         "eval_step": ("run_eval control step (policy, EvalEnv)", eval_step, wstate),
         "eval_step_eager": ("run_eval control step, env step eager", eval_step_eager, wstate),
-        "gait_oracle": ("gait oracle reference_frame", oracle, torch.zeros(n, dtype=torch.int32, device=dev)),
     }
-    record = {"tool": "profile_step", "task": args.task, "envs": n, "steps": args.steps, "reps": args.reps}
+    if env.use_imitation:
+        pieces["gait_oracle"] = ("gait oracle reference_frame", oracle, torch.zeros(n, dtype=torch.int32, device=dev))
+    record = {"tool": "profile_step", "env": args.env, "task": args.task, "envs": n, "steps": args.steps, "reps": args.reps}
     outputs, spans = {}, {}
     calls = args.steps * (args.reps + 1)
     for key, (label, fn, start) in pieces.items():

@@ -10,6 +10,9 @@ This file imports no JAX package module:
   episode length of 30 so that truncations, dones and autoresets cross the
   replays, under random actions;
 - a state returned at step t is unchanged after steps t+1 ... t+10;
+- each replay, like each eager step, is a fused step of the task's own
+  build of the task kernels (`task_kernel.build_launches`: the standing
+  build for `Standing`), and no step runs the task's eager body;
 - `megakernel.launches` (and the built kernel's own count, and
   `launches_hfield` on the heightfield) rise by 1 per replay; the span
   `env.graph` closes once per replay and `env.task` and `env.physics` only
@@ -26,6 +29,7 @@ import pytest
 import torch
 
 from open_duck_playground_torch.envs import step_graph as SG
+from open_duck_playground_torch.envs import task_kernel as TK
 from open_duck_playground_torch.envs.joystick import Joystick
 from open_duck_playground_torch.envs.standing import Standing
 from open_duck_playground_torch.envs.wrappers import EvalEnv
@@ -85,6 +89,9 @@ def test_the_graph_replays_the_eager_step_bit_for_bit(cuda, cls, task):
     ep = Episodes(cls, task, cuda)
     graphed = eager = ep.reset()
     dones = truncations = 0
+    task_env = ep.env.env
+    build = TK.build_key(task_env)
+    before = (TK.build_launches.get(build, 0), TK.eager_steps)
     with torch.no_grad():
         for t in range(200):
             action, draws = ep.inputs()
@@ -93,8 +100,13 @@ def test_the_graph_replays_the_eager_step_bit_for_bit(cuda, cls, task):
             assert_same(graphed, eager, f"{task}, step {t}")
             dones += int(graphed.done.sum())
             truncations += int(graphed.info["truncation"].sum())
+    torch.cuda.synchronize()
     assert len(ep.env._graphs) == 1
     assert truncations > 0 and dones > truncations  # episodes cut at their length, and falls
+    # one fused step of the task's build per control step each way: the
+    # graph's warm-up, its capture's replay and 198 replays; 200 eager bodies
+    assert (TK.build_launches[build] - before[0], TK.eager_steps - before[1]) == (400, 0)
+    assert ("STANDING", 1) in build[0] if cls is Standing else dict(build[0]).get("STANDING") is None
 
 
 def test_a_returned_state_does_not_change_under_later_steps(cuda):

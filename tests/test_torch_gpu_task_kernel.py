@@ -1,5 +1,6 @@
-"""The joystick task's two CUDA kernels (`envs/task_kernel.py`,
-`csrc/task_step.cu`) on the card; each test skips without one. This file
+"""The task's two CUDA kernels (`envs/task_kernel.py`, `csrc/task_step.cu`)
+on the card, in the joystick and standing builds; each test skips without
+one. This file
 imports no JAX package module:
 
     python -m pytest tests/test_torch_gpu_task_kernel.py -q
@@ -8,7 +9,8 @@ imports no JAX package module:
   `task_kernel` turned off on the instance), each on its own trajectory,
   over 50 control steps of random actions, with pushes due at the first:
   at 128 and 8192 envs, on the nominal and a domain-randomized model, and
-  at 128 envs on the heightfield and no-head recipes. The physics state
+  at 128 envs on the heightfield and no-head recipes; `Standing` at 128
+  envs randomized and 8192 nominal. The physics state
   and every integer and bool leaf are bit for bit the eager step's (the
   launch before the physics rounds as PyTorch's kernels do, so the
   physics launch gets the same inputs); the observations, rewards and
@@ -18,9 +20,10 @@ imports no JAX package module:
 - the eval's CUDA graph of `EvalEnv.step` replays its own eager body bit
   for bit, and `task_kernel.launches` rises once per replay;
 - a fused step makes no host synchronization;
-- `Standing` stays on the eager body: it counts an eager step and no
-  fused one, and its step equals the CPU's eager body from the same state
-  with the card's physics launch replayed;
+- `Standing` takes the fused path, its own build: it counts a fused step
+  of that build and no eager one, and its step equals the CPU's eager body
+  from the same state with the card's physics launch replayed, with the
+  head_pos gate open on half the envs, gated and ungated;
 - an env's record is refused inside a capture.
 """
 
@@ -60,16 +63,17 @@ def push_due(state, n):
     return state.replace(info=info)
 
 
-CASES = [("flat_terrain_backlash", {}, 128, False), ("flat_terrain_backlash", {}, 128, True),
-         ("flat_terrain_backlash", {}, 8192, False), ("flat_terrain_backlash", {}, 8192, True),
-         ("rough_terrain_backlash", RECIPE, 128, False), ("flat_terrain_no_head", RECIPE, 128, False)]
+CASES = [(Joystick, "flat_terrain_backlash", {}, 128, False), (Joystick, "flat_terrain_backlash", {}, 128, True),
+         (Joystick, "flat_terrain_backlash", {}, 8192, False), (Joystick, "flat_terrain_backlash", {}, 8192, True),
+         (Joystick, "rough_terrain_backlash", RECIPE, 128, False), (Joystick, "flat_terrain_no_head", RECIPE, 128, False),
+         (Standing, "flat_terrain", {}, 128, True), (Standing, "flat_terrain", {}, 8192, False)]
 IDS = ["flat-128-nominal", "flat-128-randomized", "flat-8192-nominal", "flat-8192-randomized",
-       "rough-128-nominal", "no_head-128-nominal"]
+       "rough-128-nominal", "no_head-128-nominal", "standing-128-randomized", "standing-8192-nominal"]
 
 
-@pytest.mark.parametrize("task, overrides, n, randomized", CASES, ids=IDS)
-def test_the_fused_step_is_the_eager_step_over_50_steps(cuda, task, overrides, n, randomized):
-    env = Joystick(task, device=cuda, config_overrides=overrides)
+@pytest.mark.parametrize("cls, task, overrides, n, randomized", CASES, ids=IDS)
+def test_the_fused_step_is_the_eager_step_over_50_steps(cuda, cls, task, overrides, n, randomized):
+    env = cls(task, device=cuda, config_overrides=overrides)
     gen = torch.Generator(device=cuda).manual_seed(5)
     model = domain_randomize(env.model, DRDraws.sample(gen, n, env.model.spec)) if randomized else env.model
     fused = slow = push_due(env.reset(env.reset_draws(gen, n), model=model), n)
@@ -122,18 +126,19 @@ def test_a_fused_step_makes_no_host_synchronization(cuda):
     assert bool(torch.isfinite(state.reward).all())
 
 
-def test_standing_stays_on_the_eager_body(cuda, monkeypatch):
-    env, host = Standing("flat_terrain", device=cuda), Standing("flat_terrain", device="cpu")
+@pytest.mark.parametrize("overrides", [{}, {"head_pos_ungated": True, "head_direct_targets": True}],
+                         ids=["gated", "ungated-head_direct_targets"])
+def test_standing_takes_the_fused_path(cuda, monkeypatch, overrides):
+    env = Standing("flat_terrain", device=cuda, config_overrides=overrides)
+    host = Standing("flat_terrain", device="cpu", config_overrides=overrides)
     gen = torch.Generator(device=cuda).manual_seed(4)
     n = 64
     state = env.reset(env.reset_draws(gen, n))
+    cmd = state.info["command"].clone()  # the head_pos gate open on the even envs
+    cmd[0::2, :3] = 0.4 * torch.rand((n // 2, 3), generator=gen, device=cuda) - 0.2
+    state = state.replace(info={**state.info, "command": cmd})
     action = 3.0 * torch.rand((n, env.action_size), generator=gen, device=cuda) - 1.5
     draws = env.step_draws(gen, n)
-
-    def refused(*args, **kwargs):
-        raise AssertionError("Standing took the fused path")
-
-    monkeypatch.setattr(TK, "step", refused)
     physics, real = [], F.step
 
     def recorded(m, d, ctrl, k):
@@ -142,11 +147,14 @@ def test_standing_stays_on_the_eager_body(cuda, monkeypatch):
         return out
 
     monkeypatch.setattr(F, "step", recorded)
-    before = (TK.launches, TK.eager_steps)
+    key = TK.build_key(env)
+    assert dict(key[0])["STANDING"] == 1
+    before = (TK.launches, TK.eager_steps, TK.build_launches.get(key, 0))
     with torch.no_grad():
         out = env.step(state, action, draws)
     torch.cuda.synchronize()
-    assert (TK.launches - before[0], TK.eager_steps - before[1]) == (0, 1)
+    assert (TK.launches - before[0], TK.eager_steps - before[1], TK.build_launches[key] - before[2]) == (1, 0, 1)
+    assert bool((out.metrics["cost/head_pos"][0::2] != 0).all())
 
     cpu = lambda tree: SG.unflatten(leaves(tree)[0], iter([t.cpu() for t in leaves(tree)[1]]))
     monkeypatch.setattr(F, "step", lambda m, d, ctrl, k: cpu(physics[0]).replace(ctrl=ctrl))

@@ -9,7 +9,9 @@ joints on the plane) against the JAX package.
   max 1e-2; derived fields at p90).
 - `Standing("flat_terrain")` reset and two steps against the JAX env with
   its own draws injected, at test_torch_envs.py's tolerances; the reward
-  terms are compared through the metrics that carry them.
+  terms are compared through the metrics that carry them. The same with
+  the steps taken by the task kernels' standing build (its host build),
+  gated, ungated, and ungated with direct head targets.
 - The standing reward terms (orientation, stand_still over the legs,
   head_pos gated and ungated) against the JAX functions; the ungated
   head_pos reaches the env through its config override.
@@ -30,6 +32,7 @@ from open_duck_playground_tpu.envs.standing import Standing as JStanding
 from open_duck_playground_tpu.models import loader as JL
 
 from open_duck_playground_torch.envs import rewards as TRW
+from open_duck_playground_torch.envs import task_kernel as TK
 from open_duck_playground_torch.envs.randomize import DRDraws, domain_randomize
 from open_duck_playground_torch.envs.standing import Standing
 from open_duck_playground_torch.models import loader as TL
@@ -37,6 +40,7 @@ from open_duck_playground_torch.physics import forward as TF
 from open_duck_playground_torch.physics import megakernel as MK
 from open_duck_playground_torch.physics.types import Model
 
+from task_kernel_check import host_library
 from test_torch_envs import (
     METRIC_REL, OBS_MAX, assert_obs_close, assert_reward_close, jax_reset_draws,
     jax_step_draws, per_env_err,
@@ -104,8 +108,10 @@ def test_standing_obs_sizes_equal_jax(envs):
     assert tenv.action_size == jenv.action_size == 14
 
 
-def test_standing_reset_and_steps_match_jax(envs):
-    jenv, tenv, jreset, jstep = envs
+def _reset_and_steps_match_jax(jenv, tenv, jreset, jstep, step):
+    """Reset and two steps of the JAX env and of the port, the port's steps
+    taken by `step(env, state, action, draws)`, at the tolerances above;
+    returns the port's last state."""
     keys = jax.random.split(jax.random.PRNGKey(21), B)
     jstate = jreset(keys)
     tstate = tenv.reset(jax_reset_draws(jenv, keys))
@@ -124,7 +130,7 @@ def test_standing_reset_and_steps_match_jax(envs):
         action = rng.uniform(-1, 1, (B, tenv.action_size)).astype(np.float32)
         draws = jax_step_draws(jenv, jstate.info["rng"])
         jstate = jstep(jstate, jnp.asarray(action))
-        tstate = tenv.step(tstate, torch.as_tensor(action), draws)
+        tstate = step(tenv, tstate, torch.as_tensor(action), draws)
         assert_obs_close(jstate.obs, tstate.obs)
         assert_reward_close(jstate.reward, tstate.reward)
         np.testing.assert_array_equal(tstate.done.numpy(), np.asarray(jstate.done))
@@ -132,7 +138,36 @@ def test_standing_reset_and_steps_match_jax(envs):
         for k in jstate.metrics:
             np.testing.assert_allclose(tstate.metrics[k].numpy(), np.asarray(jstate.metrics[k]),
                                        rtol=METRIC_REL, atol=METRIC_REL, err_msg=k)
+    return tstate
+
+
+def test_standing_reset_and_steps_match_jax(envs):
+    tstate = _reset_and_steps_match_jax(*envs, lambda env, state, action, draws: env.step(state, action, draws))
     assert float(tstate.metrics["cost/head_pos"].abs().max()) == 0.0  # the gate never opens
+
+
+KERNEL_CASES = {"gated": {}, "ungated": {"head_pos_ungated": True},
+                "ungated-head_direct": {"head_pos_ungated": True, "head_direct_targets": True}}
+
+
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_standing_task_kernels_match_jax(envs, case):
+    """The task kernels' standing build (built by the host's C++ compiler,
+    as tests/test_torch_task_kernel.py holds it against the eager step),
+    with the plain physics between its two launches, on the JAX env's
+    draws; ungated, head_pos is a cost the kernels compute, not a constant 0."""
+    overrides = KERNEL_CASES[case]
+    if overrides:
+        jenv = JStanding(task="flat_terrain", config_overrides=overrides, dtype=jnp.float32)
+        tenv = Standing("flat_terrain", config_overrides=overrides, device="cpu")
+        jreset, jstep = jax.jit(jax.vmap(jenv.reset)), jax.jit(jax.vmap(jenv.step))
+    else:
+        jenv, tenv, jreset, jstep = envs
+    lib = host_library(TK.kernel_dims(tenv))
+    tstate = _reset_and_steps_match_jax(jenv, tenv, jreset, jstep,
+                                        lambda env, state, action, draws: TK.step(env, state, action, draws, lib=lib))
+    head_cost = float(tstate.metrics["cost/head_pos"].max())
+    assert head_cost < 0 if overrides else head_cost == 0.0
 
 
 def test_standing_rewards_match_jax():
