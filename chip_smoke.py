@@ -31,6 +31,13 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      scale), their device ms (a CUDA graph of the two, replayed under CUDA
      events), the eager body's ms less its physics launch, the bytes-bound
      ms; their launches per control step are phase profile's;
+  3c. wrapper_kernels: the wrapper's two kernels (wr_pre, wr_post) at the
+     eval's and the rollout's batch on joystick / flat_terrain_backlash,
+     with the task's step stood in for by one real step's outputs (NaN and
+     inf planted in them, half the envs done before): the fused wrapper step
+     of `EvalEnv` against its eager body, every leaf bit for bit; their
+     device ms (a replay of a CUDA graph of the two), the eager body's ms,
+     the bytes-bound ms and ptxas's registers;
   4. rollout: the training rollout (TrainingEnv + Joystick on
      flat_terrain_backlash, the 128x4 policy in the loop), 8192 envs x 5
      control steps, every physics step through the plane kernel;
@@ -120,7 +127,8 @@ Phases, one JSON line each (a phase that has several kernels prints several):
      readings and the bar. A trainer that runs but no longer learns (a
      broken optimizer, reward or normalizer) fails here. The run's own
      `metrics.jsonl` must log the kernel launches counted here, and every
-     env step of the run must be a fused task step (`task_kernel`).
+     env step of the run must be a fused task step (`task_kernel`) and a
+     fused wrapper step (`wrapper_kernel`).
 Then the kernel table, the nvidia-smi line, and `{"ok": true, ...}` last.
 Exits non-zero, printing no result, without a CUDA card or when a phase
 fails. Needs no network; the kernel builds count against the run.
@@ -301,7 +309,7 @@ def load_modules():
 
     from open_duck_playground_torch.cli import runner
     from open_duck_playground_torch.envs import (joystick, randomize, standing, step_graph, task_kernel,
-                                                 wrappers)
+                                                 wrapper_kernel, wrappers)
     from open_duck_playground_torch.export import onnx_export, onnx_runtime, onnx_validate
     from open_duck_playground_torch.models import loader
     from open_duck_playground_torch.physics import collision, forward, kinematics, megakernel
@@ -319,6 +327,7 @@ def load_modules():
 
     return types.SimpleNamespace(
         J=joystick, R=randomize, S=standing, SG=step_graph, TK=task_kernel, TKC=task_kernel_check, W=wrappers,
+        WK=wrapper_kernel,
         loader=loader,
         C=collision, F=forward, K=kinematics, MK=megakernel, IB=issue_bench, cfg=config, N=networks, ppo=ppo,
         RS=running_stats, cli=runner, CKPT=checkpoint, onnx_export=onnx_export,
@@ -608,6 +617,72 @@ def task_batches(P, gen, make_env) -> dict:
                         "ints_same": ints_same, "max_ulps": ulps,
                         "ok": physics_same and ints_same and ulps <= TKC.ULPS}
     return per_batch
+
+
+def wrapper_bytes(state) -> int:
+    """Bytes the two wrapper launches read and write per env of `state` (a
+    stepped EvalEnv state), each counted once: the pre launch's done and
+    step count, one of the reset's and the state's row of every Data field
+    and observation leaf, and its outputs; the post launch's task outputs
+    and its own (the reset's rows where an env is bad not counted), the
+    float leaves of info and metrics, and the evaluator's sums."""
+    per_env = lambda t: t[0].numel() * t.element_size()
+    rows = sum(per_env(t) for _, t in state.data.fields()) + sum(per_env(t) for t in state.obs.values())
+    info = {k: v for k, v in state.info.items()
+            if k not in ("first_data", "first_obs", "eval_metrics", "steps", "truncation")}
+    floats = sum(per_env(t) for t in [*info.values(), *state.metrics.values()] if t.is_floating_point())
+    sums = 4 * (3 + len(state.info["eval_metrics"]["episode_metrics"]))
+    return (8 + 2 * rows + 4) + (2 * rows + 2 * floats + 12 + 16 + 2 * sums)
+
+
+def wrapper_phase(P, gen, smi) -> dict:
+    """The wrapper kernels (row 4) at the eval's and the rollout's batch:
+    `EvalEnv`'s fused step against its eager body from the same state, the
+    task's step stood in for by one real step's outputs with NaN and inf
+    planted (so that a graph of the fused step holds the two kernels
+    alone), every leaf bit for bit; the kernels' device ms (that graph
+    replayed under CUDA events), the eager body's ms, the bytes-bound ms;
+    returns the row."""
+    import types
+
+    WK, TKC = P.WK, P.TKC
+    per_batch, failures = {}, []
+    for n in TASK_ENVS:
+        env = P.J.Joystick(CLI_TASK, device=gen.device)
+        wenv = P.W.EvalEnv(env, 1000)
+        state = wenv.reset(env.reset_draws(gen, n))
+        state = state.replace(done=(torch.arange(n, device=gen.device) % 2 == 0).to(torch.float32))
+        action = 3.0 * torch.rand((n, env.action_size), generator=gen, device=gen.device) - 1.5
+        draws = wenv.step_draws(gen, n)
+        with torch.no_grad():
+            TKC.plant_non_finite(env, types.SimpleNamespace(setattr=setattr))  # this env only
+            nstate = wenv.task_steps(state, action, draws)  # one real step, planted
+            wenv.task_steps = lambda s, a, d: nstate
+            fused, slow = TKC.fused_wrapper_step(wenv, state, action, draws), wenv.eager_step(state, action, draws)
+            try:
+                TKC.assert_same_bits(fused, slow, f"the wrapper at {n} envs")
+                same = True
+            except AssertionError as err:
+                same, failures = False, failures + [str(err)]
+            graph = torch.cuda.CUDAGraph()  # after the eager fused step above: the library is loaded
+            with P.MK.capture(), torch.cuda.graph(graph):
+                TKC.fused_wrapper_step(wenv, state, action, draws)
+            ms = cuda_ms(graph.replay, 200)
+            plain_ms = cuda_ms(lambda: wenv.eager_step(state, action, draws), 20)
+        nbytes = n * wrapper_bytes(fused)
+        per_batch[n] = {"envs": n, "ms": ms, "plain_ms": plain_ms, "bytes_per_env": nbytes // n,
+                        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "same_bits": same}
+    ptxas = WK.library().built.ptxas_lines()
+    emit({"phase": "wrapper_kernels", "batches": list(per_batch.values()), "ptxas": ptxas,
+          "ms_is": "a replay of a CUDA graph of the two kernels", "ok": not failures, "card": smi})
+    if failures:
+        raise SystemExit(f"the wrapper kernels disagree with the eager body: {failures}")
+    first, last = (per_batch[n] for n in TASK_ENVS)
+    return {"name": "wrapper_step", "route": "cuda", "source": "open_duck_playground_torch/csrc/wrapper_step.cu",
+            "replaces": WK.TPU_KERNEL, "envs": list(TASK_ENVS), "ms": [first["ms"], last["ms"]],
+            "plain_ms": [first["plain_ms"], last["plain_ms"]], "bound_ms": [first["bound_ms"], last["bound_ms"]],
+            "bound_by": "bytes", "bytes_per_env": first["bytes_per_env"], "ptxas": ptxas,
+            "library_ms": None, "library_note": "no single PyTorch call computes a wrapper step"}
 
 
 def rollout_phase(P, gen, smi, steps: int) -> int:
@@ -1621,7 +1696,8 @@ def learn_phase(P, smi, spec) -> tuple:
     """The learning gate: a short training run through the CLI at the full
     PPO config must raise the eval reward past its bars. Returns the plane
     kernel's launches over the run and the fused task steps
-    (`task_kernel.launches`, two kernel launches each)."""
+    (`task_kernel.launches`, two kernel launches each) and the fused
+    wrapper steps (`wrapper_kernel.launches`, two launches each)."""
     cfg = P.cfg.PPOConfig()
     evals, eval_metrics = [], []
     with tempfile.TemporaryDirectory() as tmp, \
@@ -1629,6 +1705,7 @@ def learn_phase(P, smi, spec) -> tuple:
         torch.cuda.synchronize()
         P.MK.reset_launches()
         P.TK.reset_counts()
+        P.WK.reset_counts()
         t0 = time.perf_counter()
         P.cli.main(["--env", "joystick", "--task", CLI_TASK, "--seed", "0", "-o", str(pathlib.Path(tmp) / "run"),
                     "--num_timesteps", str(LEARN_STEPS), "--config_override", "num_evals=2"])
@@ -1637,6 +1714,7 @@ def learn_phase(P, smi, spec) -> tuple:
         launches, kernel_launches = P.MK.launches, P.MK.kernel(spec).launches
         launches_hfield = P.MK.launches_hfield
         task_steps = (P.TK.launches, P.TK.eager_steps)
+        wrapper_steps = (P.WK.launches, P.WK.eager_steps)
         logged = [json.loads(line)["kernel_launches"]
                   for line in (pathlib.Path(tmp) / "run" / "metrics.jsonl").read_text().splitlines()]
     eval_steps = cfg.episode_length // cfg.action_repeat
@@ -1652,6 +1730,8 @@ def learn_phase(P, smi, spec) -> tuple:
         failures.append(f"{launches} launches ({kernel_launches} of the {CLI_TASK} build), want {want_launches}")
     if task_steps != (launches, 0):  # every env step of the run through the task kernels
         failures.append(f"task steps (fused, eager) {task_steps}, want ({launches}, 0)")
+    if wrapper_steps != (launches // cfg.action_repeat, 0):  # every wrapper step through the wrapper kernels
+        failures.append(f"wrapper steps (fused, eager) {wrapper_steps}, want ({launches // cfg.action_repeat}, 0)")
     want_logged = [eval_steps * cfg.action_repeat, launches]
     if logged != want_logged:
         failures.append(f"metrics.jsonl logs {logged} kernel launches, want {want_logged}")
@@ -1661,11 +1741,11 @@ def learn_phase(P, smi, spec) -> tuple:
           "gain": rewards[1] / rewards[0] if len(rewards) == 2 else None, "gain_min": LEARN_GAIN,
           "bar": LEARN_BAR, "seconds": seconds, "seconds_per_eval": evals,
           "kernel_launches": launches, "expected_launches": want_launches, "logged_launches": logged,
-          "task_steps_fused_eager": task_steps,
+          "task_steps_fused_eager": task_steps, "wrapper_steps_fused_eager": wrapper_steps,
           "ok": not failures, "card": smi})
     if failures:
         raise SystemExit(f"learn failed: {failures}")
-    return launches, task_steps[0]
+    return launches, task_steps[0], wrapper_steps[0]
 
 
 def main() -> int:
@@ -1711,6 +1791,7 @@ def main() -> int:
     row_flat["at_eval_shape"] = {k: at_eval[k] for k in ("envs", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                          "edge_env_substeps", "qpos_p90", "qvel_p90")}
     row_task = task_phase(P, gen, smi)
+    row_wrapper = wrapper_phase(P, gen, smi)
     row_flat["launches"] = rollout_phase(P, gen, smi, steps=5)
     row_probe = probe_phase(P, gen, smi)
     row_hfield["launches"] = ppo_phase(P, gen, smi)
@@ -1731,13 +1812,15 @@ def main() -> int:
          "task_step": row_task})
     for row in (row_flat, row_nb, row_hfield, row_nh):
         row["launches_bench"] = bench[row["name"]]
-    row_flat["launches_learn"], row_task["fused_steps_learn"] = learn_phase(P, smi, flat.spec)
+    row_flat["launches_learn"], row_task["fused_steps_learn"], row_wrapper["fused_steps_learn"] = learn_phase(
+        P, smi, flat.spec)
     row_task["launches_learn"] = 2 * row_task["fused_steps_learn"]  # tk_pre and tk_post per fused step
+    row_wrapper["launches_learn"] = 2 * row_wrapper["fused_steps_learn"]  # wr_pre and wr_post
 
     for row, label in ((row_flat, "1"), (row_nb, "1f"), (row_hfield, "1h"), (row_dense, "1d"),
-                       (row_nh, "1n"), (row_probe, "2"), (row_task, "3")):
+                       (row_nh, "1n"), (row_probe, "2"), (row_task, "3"), (row_wrapper, "4")):
         row["row"] = label
-    emit({"kernels": [row_flat, row_nb, row_hfield, row_dense, row_nh, row_probe, row_task],
+    emit({"kernels": [row_flat, row_nb, row_hfield, row_dense, row_nh, row_probe, row_task, row_wrapper],
           "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -2,7 +2,10 @@
 cached reset state, per-env domain-randomized model, NaN quarantine, and the
 evaluator's per-episode sums. Counterpart of
 `open_duck_playground_tpu/envs/wrappers.py` (`TrainingEnv`, `EvalEnv`); the
-env batch is the leading axis of every tensor instead of a vmap.
+env batch is the leading axis of every tensor instead of a vmap. On CUDA
+tensors the step's bookkeeping runs as two CUDA kernels around the task's
+step (`envs/wrapper_kernel.py`); `TrainingEnv.eager_step` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from typing import Callable, Optional
 
 import torch
 
-from open_duck_playground_torch.envs import step_graph
+from open_duck_playground_torch.envs import step_graph, wrapper_kernel
 from open_duck_playground_torch.envs.env_types import State
 from open_duck_playground_torch.envs.randomize import DRDraws
 from open_duck_playground_torch.physics.types import Data
@@ -101,48 +104,83 @@ class TrainingEnv:
 
     def step(self, state: State, action: torch.Tensor, draws) -> State:
         with tracing.span("env.wrapper"):
-            info = dict(state.info)
-            first_data = info.pop("first_data")
-            first_obs = info.pop("first_obs")
-            steps_prev = info.pop("steps")
-            info.pop("truncation")
+            return self._step(state, action, draws)
 
-            # autoreset happens on the step after done was reported
-            done_prev = state.done > 0
-            data = _where_done(done_prev, first_data, state.data)
-            obs = _where_done(done_prev, first_obs, state.obs)
-            steps_prev = torch.where(done_prev, torch.zeros_like(steps_prev), steps_prev)
-            state = state.replace(data=data, obs=obs, info=info)
+    def _step(self, state: State, action: torch.Tensor, draws) -> State:
+        """The wrapper's step: on CUDA tensors its bookkeeping runs as two
+        kernels around the task's steps (`envs/wrapper_kernel.py`), on CPU
+        tensors as `eager_step`."""
+        if state.done.is_cuda:
+            return wrapper_kernel.step(self.task_steps, state, action, draws, self._action_repeat,
+                                       self._episode_length)
+        return self.eager_step(state, action, draws)
 
-            repeats = [draws] if self._action_repeat == 1 else draws
-            if len(repeats) != self._action_repeat:
-                raise ValueError(f"{len(repeats)} sets of step draws for action_repeat {self._action_repeat}")
-            nstate = state
-            for d in repeats:
-                nstate = self._env.step(nstate, action, d, model=self._model)
+    def task_steps(self, state: State, action: torch.Tensor, draws) -> State:
+        """The task's step, `action_repeat` times on the same action."""
+        repeats = [draws] if self._action_repeat == 1 else draws
+        if len(repeats) != self._action_repeat:
+            raise ValueError(f"{len(repeats)} sets of step draws for action_repeat {self._action_repeat}")
+        for d in repeats:
+            state = self._env.step(state, action, d, model=self._model)
+        return state
 
-            # quarantine non-finite envs: cached reset state, zero reward, done
-            bad = ~env_finite(nstate)
-            nstate = nstate.replace(
-                data=_where_done(bad, first_data, nstate.data),
-                obs=_where_done(bad, first_obs, nstate.obs),
-                reward=torch.where(bad, torch.zeros_like(nstate.reward), nstate.reward),
-                done=torch.where(bad, torch.ones_like(nstate.done), nstate.done),
-                info=_sanitize(bad, nstate.info),
-                metrics=_sanitize(bad, nstate.metrics),
-            )
+    def eager_step(self, state: State, action: torch.Tensor, draws) -> State:
+        """The wrapper's step in PyTorch operations: the CPU's path and the
+        reference of the fused step. Where the state carries the evaluator's
+        sums (`EvalEnv`'s `info["eval_metrics"]`), it takes them too."""
+        if state.done.is_cuda:
+            wrapper_kernel.count_eager_step()
+        info = dict(state.info)
+        em = info.pop("eval_metrics", None)
+        first_data = info.pop("first_data")
+        first_obs = info.pop("first_obs")
+        steps_prev = info.pop("steps")
+        info.pop("truncation")
 
-            steps = steps_prev + self._action_repeat
-            at_limit = steps >= self._episode_length
-            done = torch.where(at_limit, torch.ones_like(nstate.done), nstate.done)
-            truncation = at_limit * (1 - nstate.done)
+        # autoreset happens on the step after done was reported
+        done_prev = state.done > 0
+        data = _where_done(done_prev, first_data, state.data)
+        obs = _where_done(done_prev, first_obs, state.obs)
+        steps_prev = torch.where(done_prev, torch.zeros_like(steps_prev), steps_prev)
+        nstate = self.task_steps(state.replace(data=data, obs=obs, info=info), action, draws)
 
-            info = dict(nstate.info)
-            info["steps"] = steps
-            info["truncation"] = truncation
-            info["first_data"] = first_data
-            info["first_obs"] = first_obs
-            return nstate.replace(done=done, info=info)
+        # quarantine non-finite envs: cached reset state, zero reward, done
+        bad = ~env_finite(nstate)
+        nstate = nstate.replace(
+            data=_where_done(bad, first_data, nstate.data),
+            obs=_where_done(bad, first_obs, nstate.obs),
+            reward=torch.where(bad, torch.zeros_like(nstate.reward), nstate.reward),
+            done=torch.where(bad, torch.ones_like(nstate.done), nstate.done),
+            info=_sanitize(bad, nstate.info),
+            metrics=_sanitize(bad, nstate.metrics),
+        )
+
+        steps = steps_prev + self._action_repeat
+        at_limit = steps >= self._episode_length
+        done = torch.where(at_limit, torch.ones_like(nstate.done), nstate.done)
+        truncation = at_limit * (1 - nstate.done)
+
+        info = dict(nstate.info)
+        info["steps"] = steps
+        info["truncation"] = truncation
+        info["first_data"] = first_data
+        info["first_obs"] = first_obs
+        nstate = nstate.replace(done=done, info=info)
+        return nstate if em is None else _episode_sums(nstate, em)
+
+
+def _episode_sums(state: State, em) -> State:
+    """The evaluator's per-episode sums after `state`'s step, in its info."""
+    alive = 1.0 - em["episode_done"]
+    em = {
+        "episode_reward": em["episode_reward"] + alive * state.reward,
+        "episode_length": em["episode_length"] + alive,
+        "episode_done": torch.maximum(em["episode_done"], state.done),
+        "episode_metrics": {k: acc + alive * state.metrics[k] for k, acc in em["episode_metrics"].items()},
+    }
+    info = dict(state.info)
+    info["eval_metrics"] = em
+    return state.replace(info=info)
 
 
 class EvalEnv(TrainingEnv):
@@ -150,9 +188,11 @@ class EvalEnv(TrainingEnv):
     semantics): reward, length and every env metric accumulate until an
     env's first done, then freeze. They live in `info["eval_metrics"]`.
 
-    On CUDA tensors under `torch.no_grad()` (`ppo.run_eval`), `step`
-    replays a CUDA graph of its whole body, one per input signature, kept
-    by this object (`envs/step_graph.py`); `_step` is the body, eager.
+    The sums are the body's own (`TrainingEnv._step` takes them where the
+    state carries them, as this env's reset makes it). On CUDA tensors
+    under `torch.no_grad()` (`ppo.run_eval`), `step` replays a CUDA graph
+    of that body, one per input signature, kept by this object
+    (`envs/step_graph.py`); `_step` runs the body without the graph.
     `act_graphs` keeps the graphs of `ppo.run_eval`'s draws and policy
     in front of each step (`ppo.eval_actor`): their key holds this env.
     Both capture on the same side stream."""
@@ -178,19 +218,3 @@ class EvalEnv(TrainingEnv):
     def step(self, state: State, action: torch.Tensor, draws) -> State:
         with tracing.span("env.wrapper"):
             return self._graphs(self._step, (state, action, draws), self._model)
-
-    def _step(self, state: State, action: torch.Tensor, draws) -> State:
-        info = dict(state.info)
-        em = info.pop("eval_metrics")
-        nstate = super().step(state.replace(info=info), action, draws)
-        alive = 1.0 - em["episode_done"]
-        em = {
-            "episode_reward": em["episode_reward"] + alive * nstate.reward,
-            "episode_length": em["episode_length"] + alive,
-            "episode_done": torch.maximum(em["episode_done"], nstate.done),
-            "episode_metrics": {k: acc + alive * nstate.metrics[k]
-                                for k, acc in em["episode_metrics"].items()},
-        }
-        ninfo = dict(nstate.info)
-        ninfo["eval_metrics"] = em
-        return nstate.replace(info=ninfo)

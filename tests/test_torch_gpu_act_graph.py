@@ -10,9 +10,9 @@ module:
   draws, and the generator's state afterwards, bit for bit. The eager
   loop is `run_eval` with the draws given, taken from a twin generator in
   `run_eval`'s order, on an eval env whose step is its eager body
-  (`EvalEnv._step`). `Joystick` on the plane, `Joystick` on the
-  heightfield recipe with reference-state init, `Standing`, each
-  stochastic and deterministic;
+  (`EvalEnv.eager_step`, the wrapper in PyTorch operations). `Joystick`
+  on the plane, `Joystick` on the heightfield recipe with reference-state
+  init, `Standing`, each stochastic and deterministic;
 - two evals on one graph, with a new normalizer object, the parameters
   changed in place and the generator re-seeded between them, against the
   eager loop;
@@ -95,7 +95,7 @@ def eager_eval(env, variables, n, length, deterministic, twin):
     order, on an eval env whose step is its eager body: (eval numbers,
     each step's (action, draws))."""
     eval_env = EvalEnv(env, LENGTH)
-    eval_env.step = eval_env._step
+    eval_env.step = eval_env.eager_step
     reset = env.reset_draws(twin, n)
     noise, step_draws = [], []
     for _ in range(length):

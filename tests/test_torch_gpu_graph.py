@@ -4,7 +4,8 @@ This file imports no JAX package module:
 
     python -m pytest tests/test_torch_gpu_graph.py -q
 
-- The graph against the eager body (`EvalEnv._step`), bit for bit, over
+- The graph against the eager body (`EvalEnv.eager_step`: the wrapper in
+  PyTorch operations, not its two kernels), bit for bit, over
   200 control steps at 128 envs on `flat_terrain_backlash`, standing
   `flat_terrain` and the heightfield task `rough_terrain_backlash`, with an
   episode length of 30 so that truncations, dones and autoresets cross the
@@ -96,7 +97,7 @@ def test_the_graph_replays_the_eager_step_bit_for_bit(cuda, cls, task):
         for t in range(200):
             action, draws = ep.inputs()
             graphed = ep.env.step(graphed, action, draws)
-            eager = ep.env._step(eager, action, draws)
+            eager = ep.env.eager_step(eager, action, draws)
             assert_same(graphed, eager, f"{task}, step {t}")
             dones += int(graphed.done.sum())
             truncations += int(graphed.info["truncation"].sum())
@@ -175,7 +176,7 @@ def test_a_second_batch_size_captures_a_second_graph(cuda):
         action, draws = ep.inputs()
         graphed = ep.env.step(state, action, draws)
         assert len(ep.env._graphs) == 2 and MK.launches == before + 1
-        assert_same(graphed, ep.env._step(state, action, draws), "the first graph after the second")
+        assert_same(graphed, ep.env.eager_step(state, action, draws), "the first graph after the second")
     assert state_small.reward.shape == (64,)
 
 
@@ -204,7 +205,7 @@ def test_two_models_of_one_build_each_step_their_own(cuda, cls, task):
         before = (MK.launches, kernel.launches)
         graphed = ep.env.step(state, action, draws)
         assert (MK.launches - before[0], kernel.launches - before[1]) == (1, 1)
-        eager = ep.env._step(state, action, draws)
+        eager = ep.env.eager_step(state, action, draws)
         a = MK.megakernel_step(model_a, d, d.ctrl, n)
     assert len(ep.env._graphs) == 1
     assert_same(graphed, eager, f"{task}: A's replay after B's launch")

@@ -8,7 +8,8 @@ file imports no JAX package module:
 
 - One whole eval (128 envs x 1000 control steps from a reset with
   reference-state init, under a policy of random weights) of the graphed
-  `EvalEnv.step` against its eager body `EvalEnv._step`, bit for bit at
+  `EvalEnv.step` against its eager body `EvalEnv.eager_step` (the wrapper
+  in PyTorch operations, not its two kernels), bit for bit at
   every step;
 - `ppo.run_eval` on it, twice: one graph captured for both evals, one
   launch of the kernel's heightfield build counted per control step, the
@@ -65,7 +66,7 @@ def test_a_whole_eval_replays_the_eager_step_bit_for_bit(rough):
             noise, step_draws = ppo.eval_draws(env, N, False, gen)
             action, _ = policy(graphed.obs, noise)
             graphed = env.step(graphed, action, step_draws)
-            eager = env._step(eager, action, step_draws)
+            eager = env.eager_step(eager, action, step_draws)
             assert_same(graphed, eager, f"step {t}")
             falls += int(graphed.done.sum())
     assert falls > 0  # autoresets to the reset's state crossed the replays

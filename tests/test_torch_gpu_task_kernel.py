@@ -102,7 +102,7 @@ def test_the_eval_graph_replays_its_eager_body_and_counts_once_per_replay(cuda):
             action = 3.0 * torch.rand((n, env.action_size), generator=gen, device=cuda) - 1.5
             draws = env.step_draws(gen, n)
             graphed = env.step(graphed, action, draws)
-            slow = env._step(slow, action, draws)
+            slow = env.eager_step(slow, action, draws)
             assert_same(graphed, slow, f"step {t}")
     torch.cuda.synchronize()
     assert len(env._graphs) == 1

@@ -40,6 +40,8 @@ from open_duck_playground_torch.train import ppo
 from open_duck_playground_torch.train import running_stats as TRS
 from open_duck_playground_torch.train.config import PPOConfig
 
+from task_kernel_check import fused_wrapper_step, wrapper_host_library
+
 torch.set_num_threads(1)
 
 T_ = torch.as_tensor
@@ -668,6 +670,21 @@ def test_eval_env_and_action_repeat_match_jax(action_repeat):
     length 9: rewards, dones, truncations, step counts and the eval sums
     (frozen after an env's first done) agree; the action changes every
     step, so a repeat runs the same action twice."""
+    _eval_env_matches_jax(action_repeat, lambda tev, state, action, draws: tev.step(state, action, draws))
+
+
+@pytest.mark.parametrize("action_repeat", [1, 2])
+def test_eval_env_and_action_repeat_match_jax_through_the_wrapper_kernels(action_repeat):
+    """The same through the wrapper's two kernels (`envs/wrapper_kernel.py`,
+    the body the card runs), built for the host (`csrc/wrapper_step_host.cpp`):
+    the autoreset, truncation and eval sums held against JAX's EvalEnv at
+    the same tolerances."""
+    lib = wrapper_host_library()
+    _eval_env_matches_jax(action_repeat, lambda tev, state, action, draws:
+                          fused_wrapper_step(tev, state, action, draws, lib))
+
+
+def _eval_env_matches_jax(action_repeat, step):
     keys = jax.random.split(jax.random.PRNGKey(3), 6)
     jev = JW.EvalEnv(_JaxCounter(), episode_length=9, action_repeat=action_repeat)
     tev = EvalEnv(_TorchCounter(), episode_length=9, action_repeat=action_repeat)
@@ -680,7 +697,7 @@ def test_eval_env_and_action_repeat_match_jax(action_repeat):
     for i in range(12):
         action = np.full((6, 2), 0.1 * (i % 3), np.float32)
         jstate = jstep(jstate, jnp.asarray(action))
-        tstate = tev.step(tstate, T_(action), tev.step_draws(gen, 6))
+        tstate = step(tev, tstate, T_(action), tev.step_draws(gen, 6))
         np.testing.assert_allclose(tstate.reward.numpy(), np.asarray(jstate.reward), rtol=1e-6)
         for got, want in ((tstate.done, jstate.done), (tstate.info["truncation"], jstate.info["truncation"]),
                           (tstate.info["steps"], jstate.info["steps"]), (tstate.data.qpos, jstate.data.qpos)):

@@ -30,6 +30,7 @@ from open_duck_playground_torch.train import networks as TN, running_stats as TR
 from test_torch_envs import (
     assert_obs_close, assert_reward_close, jax_reset_draws, jax_step_draws, per_env_err,
 )
+from task_kernel_check import fused_wrapper_step, wrapper_host_library
 
 torch.set_num_threads(1)
 
@@ -116,6 +117,19 @@ def test_training_rollout_matches_jax(rollout):
 def test_nan_env_is_quarantined_like_jax(rollout):
     """An env whose state is NaN comes back as its cached reset state, with
     zero reward and done = 1, as wrappers.py does; the others step on."""
+    _nan_env_is_quarantined_like_jax(rollout, rollout["twrapped"].step)
+
+
+def test_nan_env_is_quarantined_like_jax_through_the_wrapper_kernels(rollout):
+    """The same through the wrapper's two kernels (`envs/wrapper_kernel.py`,
+    the body the card runs), built for the host
+    (`csrc/wrapper_step_host.cpp`)."""
+    lib, wenv = wrapper_host_library(), rollout["twrapped"]
+    _nan_env_is_quarantined_like_jax(rollout, lambda state, action, draws:
+                                     fused_wrapper_step(wenv, state, action, draws, lib))
+
+
+def _nan_env_is_quarantined_like_jax(rollout, step):
     r = rollout
     jstate, tstate = r["jstate"], r["tstate"]
     jstate = jstate.replace(data=jstate.data.replace(qvel=jstate.data.qvel.at[0].set(jnp.nan)))
@@ -125,7 +139,7 @@ def test_nan_env_is_quarantined_like_jax(rollout):
     action = np.zeros((B, r["jenv"].action_size), np.float32)
     draws = jax_step_draws(r["jenv"], jstate.info["rng"])
     jstate = r["jstep"](jstate, jnp.asarray(action))
-    tstate = r["twrapped"].step(tstate, torch.as_tensor(action), draws)
+    tstate = step(tstate, torch.as_tensor(action), draws)
 
     first = tstate.info["first_data"]
     assert tstate.done[0] == 1.0 and tstate.reward[0] == 0.0
