@@ -81,7 +81,7 @@ SENSOR_KINDS = (
 # and one per replay of a CUDA graph that captured one (`Captured`).
 # `launches_hfield` counts those of them that ran the heightfield build,
 # `launches_dense` those on the degenerate partition; each built library
-# counts its own (`kernel(spec).launches`).
+# counts its own (`kernel(spec).launches`, all of them: `build_launches`).
 launches = 0
 launches_hfield = 0
 launches_dense = 0
@@ -657,6 +657,13 @@ def kernel(spec: ModelSpec, dense: bool = False) -> _Kernel:
     if key not in _KERNELS:
         _KERNELS[key] = _Kernel(dims, dense)
     return _KERNELS[key]
+
+
+def build_launches() -> Dict[Tuple, int]:
+    """Each built library's launches since the last reset, keyed by its
+    `kernel_dims` as sorted items (a reader recovers the dims with
+    `dict(key)`)."""
+    return {key: k.launches for key, k in _KERNELS.items()}
 
 
 class Captured:
